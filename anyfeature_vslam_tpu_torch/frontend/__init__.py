@@ -1,0 +1,1 @@
+"""frontend layer of the PyTorch port (mirrors anyfeature_vslam_tpu/frontend)."""

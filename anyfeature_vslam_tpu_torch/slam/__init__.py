@@ -1,0 +1,1 @@
+"""slam layer of the PyTorch port (mirrors anyfeature_vslam_tpu/slam)."""

@@ -1,0 +1,108 @@
+"""The hand-written CUDA kernels against their plain PyTorch twins, on the
+card. Skipped without a CUDA device. This file imports no JAX, so it runs
+on the card's machine, which has none:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+K1 and binary K2 must be exact; float K2 distances are fp32 sums in
+another order (atol 1e-2, as tests/test_pallas_match.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from anyfeature_vslam_tpu_torch.frontend import cuda_fast
+from anyfeature_vslam_tpu_torch.ops import cuda_match
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("hw", [(5, 5), (7, 40), (33, 65), (134, 179), (480, 640), (1080, 1920)])
+@pytest.mark.parametrize("kind", ["uniform", "levels"])
+def test_fast_nms_kernel_is_bit_exact(cuda, hw, kind):
+    rng = np.random.default_rng(hw[0] * 7 + hw[1])
+    if kind == "uniform":
+        img = rng.uniform(0, 255, hw).astype(np.float32)
+    else:
+        img = (rng.integers(0, 6, hw) * 40.0).astype(np.float32)
+    x = torch.from_numpy(img).to(cuda)
+    before = cuda_fast.fast_nms.launches
+    got = cuda_fast.fast_nms(x, 20.0)
+    want = cuda_fast.fast_nms_plain(x, 20.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cuda_fast.fast_nms.launches == before + 1
+
+
+def test_fast_nms_kernel_rejects_bad_input(cuda):
+    with pytest.raises(ValueError):
+        cuda_fast.fast_nms(torch.zeros((32, 32), dtype=torch.float64, device=cuda), 20.0)
+    with pytest.raises(ValueError):
+        cuda_fast.fast_nms(torch.zeros((32, 64), device=cuda).T, 20.0)
+
+
+def _case(dev, nq, nc, dim, binary, seed=0):
+    rng = np.random.default_rng(seed)
+    if binary:
+        q = rng.integers(0, 2, (nq, dim)).astype(np.uint8)
+        c = rng.integers(0, 2, (nc, dim)).astype(np.uint8)
+        c[nc // 2:] = c[:nc - nc // 2]  # duplicated rows: exact ties
+    else:
+        q = rng.normal(size=(nq, dim)).astype(np.float32)
+        c = rng.normal(size=(nc, dim)).astype(np.float32)
+    side = (
+        rng.uniform(0, 640, (nq, 2)), rng.uniform(0, 640, (nc, 2)),
+        np.where(rng.random(nq) < 0.9, rng.uniform(20, 300, nq), -1.0),
+        rng.uniform(0.5, 1.2, nq), rng.uniform(2.0, 4.0, nq), rng.uniform(1, 3.6, nc),
+    )
+    side = [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in side]
+    valid = torch.from_numpy(rng.random(nc) < 0.9).to(dev)
+    q_uv, c_uv, q_rad, q_slo, q_shi, c_size = side
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(c).to(dev),
+            q_uv, c_uv, q_rad, q_slo, q_shi, c_size, valid)
+
+
+@pytest.mark.parametrize("dim", [256, 384, 488, 512])
+@pytest.mark.parametrize("nq,nc", [(1, 1), (7, 300), (300, 257), (4096, 1000)])
+def test_best_two_binary_kernel_is_exact(cuda, dim, nq, nc):
+    args = _case(cuda, nq, nc, dim, True)
+    before = cuda_match.best_two.launches
+    b, i, s = cuda_match.best_two(*args)
+    rb, ri, rs = cuda_match.reference_best_two(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(b, rb) and torch.equal(i.long(), ri) and torch.equal(s, rs)
+    assert cuda_match.best_two.launches == before + 1
+
+
+@pytest.mark.parametrize("dim", [48, 64, 128])
+@pytest.mark.parametrize("nq,nc", [(1, 1), (100, 300), (1000, 1000)])
+def test_best_two_float_kernel_matches(cuda, dim, nq, nc):
+    args = _case(cuda, nq, nc, dim, False)
+    b, i, s = cuda_match.best_two(*args)
+    rb, ri, rs = cuda_match.reference_best_two(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(b, rb, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-2)
+    near_tie = (rs - rb) < 1e-2
+    assert not bool(((i.long() != ri) & ~near_tie).any())
+
+
+def test_best_two_kernel_no_candidates_and_bad_input(cuda):
+    args = list(_case(cuda, 64, 100, 256, True))
+    args[8] = torch.zeros_like(args[8])
+    b, i, s = cuda_match.best_two(*args)
+    assert bool((i == -1).all()) and bool((b == cuda_match.INF).all())
+    args[8] = args[8].to(torch.uint8)  # validity must be bool
+    with pytest.raises(ValueError):
+        cuda_match.best_two(*args)
+    args = list(_case(cuda, 8, 8, 256, True))
+    with pytest.raises(ValueError):
+        cuda_match.best_two(args[0].cpu(), *args[1:])
