@@ -1,6 +1,6 @@
 // K2: masked best / argmin / second-best descriptor search.
 //
-// Replaces the Pallas TPU kernel anyfeature_vslam_tpu/ops/pallas_match.py
+// Replaces the Pallas TPU kernel anyfeature_vslam_tpu/ops/pallas_match.py:179
 // (fused_best_two, body _match_kernel). Same semantics as the plain twin
 // anyfeature_vslam_tpu_torch/ops/cuda_match.py reference_best_two: for each
 // query, over every candidate that passes the gates
@@ -10,22 +10,47 @@
 // distance among the other candidates. A query with no candidate gets
 // best = second = 3e8 and index -1.
 //
-// Distances: binary descriptors ({0,1} uint8 bit planes, D = 256/384/488/
-// 512) are packed into 32-bit words and compared with __popc(a ^ b), which
-// is exactly the plain version's |a| + |b| - 2 a.b. Float descriptors
-// (D <= 128) use max(|q|^2 + |c|^2 - 2 q.c, 0) in fp32 like the plain
-// version, with another summation order.
+// Binary path (D = 256/384/488/512 bits, W = 8/12/16 words). Candidates
+// come as packed little-endian 32-bit words, made by pack_bits_kernel once
+// per candidate set (the tracked frame packs its keypoints once and three
+// searches share them); queries come as {0,1} bytes and each warp packs its
+// own rows with __ballot_sync, so a search is one launch. Distances are
+// __popc(q ^ c), exactly the plain version's |a| + |b| - 2 a.b.
 //
-// What bounds it on Hopper: integer ALU issue. At the local-map search
-// (4096 queries x 1000 candidates x 8 words) the kernel does ~33M
-// xor+popc pairs over ~0.2 MB of packed input, so it is compute-light and
-// latency-bound at this size. One warp owns one query (its words live in
-// registers); a block of 8 warps streams candidate tiles of 256 rows
-// through shared memory (rows padded by one word: no bank conflicts) so
-// each candidate row is read from device memory once per block. Each lane
-// folds its candidates in increasing index order (strict < keeps the
-// lowest index, a tie goes to second), then the warp merges lane results
-// with an order-independent lexicographic (best, idx) min.
+// What bounds it on Hopper: neither bytes nor operations at the main path's
+// sizes, but latency. The local-map search (4096 x 1000, D = 256) reads
+// 1.2 MB (0.4 us at 3.35 TB/s) and needs ~33M gate operations (0.5 us at
+// 67 TFLOP/s); the gates pass 0.4-20% of the pairs, so the popcounts are
+// fewer still. The design therefore cuts launches and staging, and spends
+// ALU only where the gate passes:
+//   - one block stages the whole candidate set in shared memory once (the
+//     words with cp.async, the gate data as float4 {u, v, size, -}, the
+//     size NaN where a candidate is invalid so the size test rejects it),
+//     one barrier and no tile loop up to 2048 candidates; above that, a
+//     double-buffered loop over tiles of 1024;
+//   - a block of 32 warps serves 32 / S queries, one warp per query and
+//     its candidates split over S = 1, 2, 4 or 8 warps, S chosen from Nq
+//     so that the grid is one wave of one block per SM (S = 1 at 4096
+//     queries, 4 at 1000): 32 warps per SM hide the latency of the gate
+//     loop, where one warp per query with 8 per block left 8;
+//   - each lane tests one candidate's gate and the warp ballots it; the
+//     passing indices go, in increasing order, into a per-warp ring in
+//     shared memory, and when 32 are queued each lane pops one and
+//     popcounts it. A lane thus folds its candidates in increasing index
+//     order (strict < keeps the lowest index, a tie goes to second), and
+//     the warp's lanes, then the query's S warps, merge with an
+//     order-independent lexicographic (best, idx) min: the result is
+//     exact.
+// Tensor cores are not used. A b1 mma.sync (m16n8k256 .and.popc) would be
+// exact through |a| + |b| - 2 popc(a & b), but it computes every pair, and
+// on the main path the gates discard 80-99.6% of them; the only ungated
+// search, the reference-keyframe fallback (1000 x 1000 x 8 words, ~8M
+// popcounts, ~2 us on the CUDA cores), runs only when motion tracking
+// fails.
+//
+// Float path (D <= 128): max(|q|^2 + |c|^2 - 2 q.c, 0) in fp32 like the
+// plain version, with another summation order; one warp per query,
+// candidate tiles of 64 rows through shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,10 +58,17 @@
 namespace {
 
 constexpr float kInf = 3.0e8f;
-constexpr int kWarps = 8;       // queries per block
-constexpr int kTileC = 256;     // candidate rows per shared-memory tile (binary)
-constexpr int kTileCF = 64;     // candidate rows per shared-memory tile (float)
-constexpr int kMaxDimF = 128;   // widest float descriptor
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;               // warps per block (pack, float path)
+constexpr int kThreads = kWarps * 32;
+constexpr int kMatchWarps = 32;         // warps per block (binary search)
+constexpr int kMatchThreads = kMatchWarps * 32;
+constexpr int kSms = 132;               // streaming multiprocessors of an H100 SXM
+constexpr int kQueue = 64;              // ring of queued candidate rows per warp
+constexpr int kWholeMax = 2048;         // candidate sets staged whole up to this size
+constexpr int kTile = 1024;             // rows per tile (two buffers) above it
+constexpr int kTileCF = 64;             // candidate rows per tile (float)
+constexpr int kMaxDimF = 128;           // widest float descriptor
 
 struct Best2 {
   float best;
@@ -70,9 +102,9 @@ __device__ __forceinline__ Best2 warp_merge(Best2 a) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     Best2 o;
-    o.best = __shfl_xor_sync(0xffffffffu, a.best, off);
-    o.idx = __shfl_xor_sync(0xffffffffu, a.idx, off);
-    o.second = __shfl_xor_sync(0xffffffffu, a.second, off);
+    o.best = __shfl_xor_sync(kFull, a.best, off);
+    o.idx = __shfl_xor_sync(kFull, a.idx, off);
+    o.second = __shfl_xor_sync(kFull, a.second, off);
     a = merge(a, o);
   }
   return a;
@@ -91,7 +123,223 @@ struct Side {
   float* second;        // (nq,)
 };
 
-// per-candidate gate data staged beside each tile
+// ------------------------------------------------------------ binary path
+
+// (n, d) {0,1} bytes -> (n, nwords) little-endian bit words, zero tail.
+// One warp per row: lane l reads byte 32 w + l (coalesced), and the warp's
+// ballot is word w.
+__global__ void __launch_bounds__(kThreads)
+pack_bits_kernel(const uint8_t* __restrict__ bits, uint32_t* __restrict__ words,
+                 int n, int d, int nwords) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // row is the same for the whole warp
+  const uint8_t* src = bits + static_cast<size_t>(row) * d;
+  uint32_t mine = 0;
+  for (int w = 0; w < nwords; ++w) {
+    const int k = 32 * w + lane;
+    const uint32_t word = __ballot_sync(kFull, k < d && src[k] != 0);
+    if (lane == w) mine = word;
+  }
+  if (lane < nwords) words[static_cast<size_t>(row) * nwords + lane] = mine;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// candidate rows [t0, t0 + n): words by cp.async (16 B chunks), gate data
+// by plain loads as float4 {u, v, size or NaN where invalid, 0}
+template <int W>
+__device__ __forceinline__ void stage_tile(uint32_t* s_words, float4* s_gate,
+                                           const uint32_t* __restrict__ c_words,
+                                           const Side& s, int t0, int n) {
+  const uint32_t* src = c_words + static_cast<size_t>(t0) * W;
+  for (int i = threadIdx.x; i < n * (W / 4); i += kMatchThreads) {
+    cp_async16(s_words + 4 * i, src + 4 * i);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < n; i += kMatchThreads) {
+    const int j = t0 + i;
+    const float size = s.c_valid[j] ? s.c_size[j] : __int_as_float(0x7fc00000);
+    s_gate[i] = make_float4(s.c_uv[2 * j], s.c_uv[2 * j + 1], size, 0.0f);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ float hamming(const uint32_t (&q)[W], const uint32_t* c) {
+  const uint4* c4 = reinterpret_cast<const uint4*>(c);
+  int pop = 0;
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const uint4 v = c4[k];
+    pop += __popc(q[4 * k] ^ v.x) + __popc(q[4 * k + 1] ^ v.y) +
+           __popc(q[4 * k + 2] ^ v.z) + __popc(q[4 * k + 3] ^ v.w);
+  }
+  return static_cast<float>(pop);
+}
+
+// dynamic shared memory of one block: the queues, the per-warp partial
+// results, then the gate data and the words of one or two tiles
+constexpr size_t kQueueBytes = static_cast<size_t>(kMatchWarps) * kQueue * sizeof(int);
+constexpr size_t kPartBytes = static_cast<size_t>(kMatchWarps) * 16;
+
+template <int W>
+size_t smem_bytes(int tile, int nbuf) {
+  return kQueueBytes + kPartBytes +
+         static_cast<size_t>(nbuf) * tile * (sizeof(float4) + W * sizeof(uint32_t));
+}
+
+template <int W>
+size_t smem_max() {
+  const size_t whole = smem_bytes<W>(kWholeMax, 1);
+  const size_t tiled = smem_bytes<W>(kTile, 2);
+  return whole > tiled ? whole : tiled;
+}
+
+// q_bits (nq, d) bytes, c_words (nc, W) words. A block serves G = 32 / S
+// queries; query g of the block is served by warps g*S .. g*S+S-1, each
+// scanning every S-th 32-candidate chunk, and their results are merged at
+// the end. `tile` is nc (staged whole) or kTile (two buffers).
+template <int W, int S>
+__global__ void __launch_bounds__(kMatchThreads)
+best_two_bits_kernel(const uint8_t* __restrict__ q_bits, const uint32_t* __restrict__ c_words,
+                     int nq, int nc, int d, int tile, Side s) {
+  constexpr int G = kMatchWarps / S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbuf = tile < nc ? 2 : 1;
+  int* s_queue = reinterpret_cast<int*>(smem_raw);
+  Best2* s_part = reinterpret_cast<Best2*>(smem_raw + kQueueBytes);
+  float4* s_gate = reinterpret_cast<float4*>(smem_raw + kQueueBytes + kPartBytes);
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_gate + nbuf * tile);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = warp % S;
+  const unsigned below = (1u << lane) - 1u;
+  const int ntiles = (nc + tile - 1) / tile;
+
+  // the first tile is in flight while each warp packs its query
+  stage_tile<W>(s_words, s_gate, c_words, s, 0, min(tile, nc));
+
+  const int q = blockIdx.x * G + warp / S;
+  const bool active = q < nq;  // an inactive query keeps rad = -1: no gate passes
+  const uint8_t* src = q_bits + static_cast<size_t>(q) * d;
+  uint32_t qr[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int k = 32 * w + lane;
+    qr[w] = __ballot_sync(kFull, active && k < d && src[k] != 0);
+  }
+  const float qu = active ? s.q_uv[2 * q] : 0.0f;
+  const float qv = active ? s.q_uv[2 * q + 1] : 0.0f;
+  const float rad = active ? s.q_rad[q] : -1.0f;
+  const float slo = active ? s.q_slo[q] : 0.0f;
+  const float shi = active ? s.q_shi[q] : 0.0f;
+  Best2 acc{kInf, -1, kInf};
+  int* queue = s_queue + warp * kQueue;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int t0 = t * tile;
+    const int n = min(tile, nc - t0);
+    const int buf = t & 1;
+    if (t + 1 < ntiles) {  // the next tile goes into the other buffer
+      const int t1 = t0 + tile;
+      stage_tile<W>(s_words + (buf ^ 1) * tile * W, s_gate + (buf ^ 1) * tile, c_words, s,
+                    t1, min(tile, nc - t1));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float4* tile_gate = s_gate + buf * tile;
+    const uint32_t* tile_words = s_words + buf * tile * W;
+
+    int head = 0, tail = 0;
+    for (int base = 32 * split; base < n; base += 32 * S) {
+      const int j = base + lane;
+      const float4 g = j < n ? tile_gate[j] : make_float4(0.0f, 0.0f, __int_as_float(0x7fc00000), 0.0f);
+      const bool pass = fabsf(qu - g.x) <= rad && fabsf(qv - g.y) <= rad && g.z >= slo &&
+                        g.z <= shi;
+      const unsigned ballot = __ballot_sync(kFull, pass);
+      if (pass) queue[(tail + __popc(ballot & below)) & (kQueue - 1)] = j;
+      tail += __popc(ballot);
+      if (tail - head >= 32) {  // 32 queued: one each
+        __syncwarp();
+        const int jj = queue[(head + lane) & (kQueue - 1)];
+        __syncwarp();
+        head += 32;
+        fold(acc, hamming<W>(qr, tile_words + jj * W), t0 + jj);
+      }
+    }
+    __syncwarp();  // the rest of the queue, fewer than 32
+    if (lane < tail - head) {
+      const int jj = queue[(head + lane) & (kQueue - 1)];
+      fold(acc, hamming<W>(qr, tile_words + jj * W), t0 + jj);
+    }
+    __syncthreads();  // this buffer and the queues are reused by the next tile
+  }
+
+  acc = warp_merge(acc);
+  if (S > 1) {  // merge the query's S warps (order-independent)
+    if (lane == 0) s_part[warp] = acc;
+    __syncthreads();
+    if (split != 0) return;
+#pragma unroll
+    for (int k = 1; k < S; ++k) acc = merge(acc, s_part[warp + k]);
+  }
+  if (lane == 0 && active) {
+    s.best[q] = acc.best;
+    s.idx[q] = acc.idx;
+    s.second[q] = acc.second;
+  }
+}
+
+template <int W, int S>
+int set_smem_limit() {
+  return static_cast<int>(cudaFuncSetAttribute(best_two_bits_kernel<W, S>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem_max<W>())));
+}
+
+template <int W, int S>
+void launch_bits(const uint8_t* q_bits, const uint32_t* c_words, int nq, int nc, int d,
+                 const Side& s, cudaStream_t stream) {
+  constexpr int G = kMatchWarps / S;
+  const int tile = nc <= kWholeMax ? nc : kTile;
+  const int nbuf = tile < nc ? 2 : 1;
+  const int grid = (nq + G - 1) / G;
+  best_two_bits_kernel<W, S><<<grid, kMatchThreads, smem_bytes<W>(tile, nbuf), stream>>>(
+      q_bits, c_words, nq, nc, d, tile, s);
+}
+
+template <int W>
+void launch_bits_split(const uint8_t* q_bits, const uint32_t* c_words, int nq, int nc, int d,
+                       const Side& s, cudaStream_t stream) {
+  // split a query's candidates over more warps while the grid still fits
+  // one wave of one block per SM
+  if (nq * 8 <= kMatchWarps * kSms) {
+    launch_bits<W, 8>(q_bits, c_words, nq, nc, d, s, stream);
+  } else if (nq * 4 <= kMatchWarps * kSms) {
+    launch_bits<W, 4>(q_bits, c_words, nq, nc, d, s, stream);
+  } else if (nq * 2 <= kMatchWarps * kSms) {
+    launch_bits<W, 2>(q_bits, c_words, nq, nc, d, s, stream);
+  } else {
+    launch_bits<W, 1>(q_bits, c_words, nq, nc, d, s, stream);
+  }
+}
+
+// ------------------------------------------------------------- float path
+
+// per-candidate gate data staged beside each float tile
 struct CandMeta {
   float u, v, size;
   int valid;
@@ -101,86 +349,6 @@ __device__ __forceinline__ bool gate(const CandMeta& c, float qu, float qv,
                                      float rad, float slo, float shi) {
   return c.valid && fabsf(qu - c.u) <= rad && fabsf(qv - c.v) <= rad &&
          c.size >= slo && c.size <= shi;
-}
-
-__device__ __forceinline__ void stage_meta(CandMeta* s_meta, const Side& s,
-                                           int t0, int n, int tid, int nthr) {
-  for (int i = tid; i < n; i += nthr) {
-    const int j = t0 + i;
-    s_meta[i] = CandMeta{s.c_uv[2 * j], s.c_uv[2 * j + 1], s.c_size[j],
-                         static_cast<int>(s.c_valid[j])};
-  }
-}
-
-// (n, d) {0,1} bytes -> (n, W) little-endian bit words, zero-padded
-__global__ void pack_bits_kernel(const uint8_t* __restrict__ bits,
-                                 uint32_t* __restrict__ words, int n, int d,
-                                 int nwords) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * nwords) return;
-  const int row = i / nwords, wd = i % nwords;
-  const uint8_t* src = bits + static_cast<size_t>(row) * d;
-  uint32_t acc = 0;
-  for (int b = 0; b < 32; ++b) {
-    const int k = wd * 32 + b;
-    if (k < d && src[k]) acc |= 1u << b;
-  }
-  words[i] = acc;
-}
-
-template <int W>
-__global__ void best_two_bits_kernel(const uint32_t* __restrict__ qw,
-                                     const uint32_t* __restrict__ cw,
-                                     int nq, int nc, Side s) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* s_c = smem;                                      // kTileC x (W+1)
-  CandMeta* s_meta = reinterpret_cast<CandMeta*>(smem + kTileC * (W + 1));
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q = blockIdx.x * kWarps + warp;
-  const bool active = q < nq;
-
-  uint32_t qr[W];
-  float qu = 0.f, qv = 0.f, rad = -1.f, slo = 0.f, shi = 0.f;
-  if (active) {
-#pragma unroll
-    for (int k = 0; k < W; ++k) qr[k] = qw[static_cast<size_t>(q) * W + k];
-    qu = s.q_uv[2 * q];
-    qv = s.q_uv[2 * q + 1];
-    rad = s.q_rad[q];
-    slo = s.q_slo[q];
-    shi = s.q_shi[q];
-  }
-  Best2 acc{kInf, -1, kInf};
-
-  for (int t0 = 0; t0 < nc; t0 += kTileC) {
-    const int n = min(kTileC, nc - t0);
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < n * W; i += nthr) {
-      const int r = i / W, k = i % W;
-      s_c[r * (W + 1) + k] = cw[static_cast<size_t>(t0) * W + i];
-    }
-    stage_meta(s_meta, s, t0, n, tid, nthr);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = lane; j < n; j += 32) {
-      float v = kInf;
-      if (gate(s_meta[j], qu, qv, rad, slo, shi)) {
-        int pop = 0;
-#pragma unroll
-        for (int k = 0; k < W; ++k) pop += __popc(qr[k] ^ s_c[j * (W + 1) + k]);
-        v = static_cast<float>(pop);
-      }
-      fold(acc, v, t0 + j);
-    }
-  }
-  if (!active) return;
-  acc = warp_merge(acc);
-  if (lane == 0) {
-    s.best[q] = acc.best;
-    s.idx[q] = acc.idx;
-    s.second[q] = acc.second;
-  }
 }
 
 __global__ void best_two_f32_kernel(const float* __restrict__ qf,
@@ -205,7 +373,7 @@ __global__ void best_two_f32_kernel(const float* __restrict__ qf,
       qn += x * x;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(0xffffffffu, qn, off);
+    for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(kFull, qn, off);
     qu = s.q_uv[2 * q];
     qv = s.q_uv[2 * q + 1];
     rad = s.q_rad[q];
@@ -221,7 +389,11 @@ __global__ void best_two_f32_kernel(const float* __restrict__ qf,
       const int r = i / d, k = i % d;
       s_c[r * (d + 1) + k] = cf[static_cast<size_t>(t0) * d + i];
     }
-    stage_meta(s_meta, s, t0, n, tid, nthr);
+    for (int i = tid; i < n; i += nthr) {
+      const int j = t0 + i;
+      s_meta[i] = CandMeta{s.c_uv[2 * j], s.c_uv[2 * j + 1], s.c_size[j],
+                           static_cast<int>(s.c_valid[j])};
+    }
     __syncthreads();
     for (int r = tid; r < n; r += nthr) {
       float cn = 0.f;
@@ -255,42 +427,56 @@ Side make_side(const float* q_uv, const float* q_rad, const float* q_slo,
   return Side{q_uv, q_rad, q_slo, q_shi, c_uv, c_size, c_valid, best, idx, second};
 }
 
-template <int W>
-void launch_bits(const uint32_t* qw, const uint32_t* cw, int nq, int nc,
-                 const Side& s, cudaStream_t stream) {
-  const size_t shmem = kTileC * (W + 1) * sizeof(uint32_t) + kTileC * sizeof(CandMeta);
-  const int grid = (nq + kWarps - 1) / kWarps;
-  best_two_bits_kernel<W><<<grid, kWarps * 32, shmem, stream>>>(qw, cw, nq, nc, s);
-}
-
 }  // namespace
 
-// Binary path. q_bits (nq, d), c_bits (nc, d): {0,1} uint8, d <= 512.
-// q_words (nq, nwords) and c_words (nc, nwords) uint32 are scratch the
-// caller allocates, nwords = 8, 12 or 16 (d rounded up to 32 bits, 488 ->
-// 16). Side arrays float32 / bool, outputs (nq,) float32 / int32 /
-// float32, all contiguous on the current device. Returns
-// cudaGetLastError() after the launches (0 = launched); nq, nc >= 1.
-extern "C" int best_two_bits(const uint8_t* q_bits, const uint8_t* c_bits,
+// Raises the dynamic shared memory limit of every binary kernel instance to
+// what its largest launch asks (up to 172 KB). Call once per device before
+// the first launch; returns the first CUDA error, 0 on success.
+extern "C" int best_two_init() {
+  int (*const setters[])() = {
+      set_smem_limit<8, 1>,  set_smem_limit<8, 2>,  set_smem_limit<8, 4>,  set_smem_limit<8, 8>,
+      set_smem_limit<12, 1>, set_smem_limit<12, 2>, set_smem_limit<12, 4>, set_smem_limit<12, 8>,
+      set_smem_limit<16, 1>, set_smem_limit<16, 2>, set_smem_limit<16, 4>, set_smem_limit<16, 8>,
+  };
+  for (auto set : setters) {
+    const int err = set();
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// bits (n, d) {0,1} uint8 -> words (n, nwords) uint32, nwords = ceil(d / 32),
+// both contiguous on the current device, n >= 1. Returns cudaGetLastError()
+// after the launch (0 = launched).
+extern "C" int pack_bits(const uint8_t* bits, uint32_t* words, int n, int d, int nwords,
+                         void* stream_ptr) {
+  if (d < 1 || nwords != (d + 31) / 32 || nwords > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (n + kWarps - 1) / kWarps;
+  pack_bits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      bits, words, n, d, nwords);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Binary path, one launch. q_bits (nq, d) {0,1} uint8, c_words (nc, nwords)
+// uint32 from pack_bits with the same d, 16-byte aligned; nwords = 8, 12 or
+// 16. Side arrays float32 / bool, outputs (nq,) float32 / int32 / float32,
+// all contiguous on the current device; nq, nc >= 1; best_two_init() done.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int best_two_bits(const uint8_t* q_bits, const uint32_t* c_words,
                              int nq, int nc, int d, int nwords,
-                             uint32_t* q_words, uint32_t* c_words,
                              const float* q_uv, const float* q_rad,
                              const float* q_slo, const float* q_shi,
                              const float* c_uv, const float* c_size,
                              const uint8_t* c_valid, float* best, int* idx,
                              float* second, void* stream_ptr) {
+  if (nwords != (d + 31) / 32) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int threads = 256;
-  pack_bits_kernel<<<(nq * nwords + threads - 1) / threads, threads, 0, stream>>>(
-      q_bits, q_words, nq, d, nwords);
-  pack_bits_kernel<<<(nc * nwords + threads - 1) / threads, threads, 0, stream>>>(
-      c_bits, c_words, nc, d, nwords);
   const Side s = make_side(q_uv, q_rad, q_slo, q_shi, c_uv, c_size, c_valid,
                            best, idx, second);
   switch (nwords) {
-    case 8: launch_bits<8>(q_words, c_words, nq, nc, s, stream); break;
-    case 12: launch_bits<12>(q_words, c_words, nq, nc, s, stream); break;
-    case 16: launch_bits<16>(q_words, c_words, nq, nc, s, stream); break;
+    case 8: launch_bits_split<8>(q_bits, c_words, nq, nc, d, s, stream); break;
+    case 12: launch_bits_split<12>(q_bits, c_words, nq, nc, d, s, stream); break;
+    case 16: launch_bits_split<16>(q_bits, c_words, nq, nc, d, s, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -311,6 +497,6 @@ extern "C" int best_two_f32(const float* q, const float* c, int nq, int nc,
   const size_t shmem = (kWarps * d + kTileCF * (d + 1) + kTileCF) * sizeof(float) +
                        kTileCF * sizeof(CandMeta);
   const int grid = (nq + kWarps - 1) / kWarps;
-  best_two_f32_kernel<<<grid, kWarps * 32, shmem, stream>>>(q, c, nq, nc, d, s);
+  best_two_f32_kernel<<<grid, kThreads, shmem, stream>>>(q, c, nq, nc, d, s);
   return static_cast<int>(cudaGetLastError());
 }

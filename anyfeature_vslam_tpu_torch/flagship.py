@@ -2,7 +2,7 @@
 
 ``tracking_step``: orb32 extraction (K1 on every level) -> one guided
 search of the previous frame's map points (K2) -> motion-only pose LM.
-``entry(device)`` mirrors ``__graft_entry__.entry()``: the step at
+``entry(device="cuda")`` mirrors ``__graft_entry__.entry()``: the step at
 640x480 with 1000 features, and example arguments on ``device``.
 """
 
@@ -67,8 +67,10 @@ def example_on(device, height: int = 480, width: int = 640, **kw):
     return arrays + tuple(float(v) for v in ex[7:])
 
 
-def entry(device):
-    """(fn, example_args) for the step at 640x480, 1000 orb32 features."""
+def entry(device="cuda"):
+    """(fn, example_args) for the step at 640x480, 1000 orb32 features, on
+    the card unless the caller names another device (the tests pass
+    "cpu")."""
     height, width = 480, 640
     extractor = OrbExtractor(ExtractorConfig(n_features=1000), height, width).to(device)
     fn = functools.partial(tracking_step, extractor=extractor)

@@ -2,9 +2,9 @@
 
 ``OrbExtractor`` is the ``detector == "fast"``, ``descriptor == "bin256"``
 branch of the JAX ``extract_features``: 8-level pyramid, FAST + 3x3 NMS per
-level (kernel K1 on the card), grid-spread top-k, IC angle and steered
-BRIEF-256 on the blurred level, per-level budgets and ORB size
-normalisation. Its constants (resize matrices, Gaussian taps, BRIEF
+level (kernel K1 on the card, one launch for all levels), grid-spread
+top-k, IC angle and steered BRIEF-256 on the blurred level, per-level
+budgets and ORB size normalisation. Its constants (resize matrices, Gaussian taps, BRIEF
 pattern and sampling tables, moment matrix) are module buffers, so
 ``.to(device)`` moves them with the module. The registry and config are
 copied from the JAX package and held equal to it by a CPU test.
@@ -150,12 +150,13 @@ class OrbExtractor(nn.Module):
     def forward(self, image):
         cfg = self.cfg
         image = image.reshape(self.height, self.width)
-        levels = pyramid.build_pyramid(image, self.resize_mats())
+        levels = [l.contiguous() for l in pyramid.build_pyramid(image, self.resize_mats())]
+        # K1 on every level: one launch on the card
+        scores = cuda_fast.fast_nms_levels(levels, cfg.detect_th)
         outs = {k: [] for k in ("xy", "resp", "angle", "desc_bits", "valid")}
         for lvl, budget in enumerate(cfg.level_budgets):
-            img_l = levels[lvl].contiguous()
-            score = cuda_fast.fast_nms(img_l, cfg.detect_th)
-            xy, resp, valid = select.select_spread_topk(score, budget, cfg.border)
+            img_l = levels[lvl]
+            xy, resp, valid = select.select_spread_topk(scores[lvl], budget, cfg.border)
             # one patch gather from the blurred level serves the IC angle
             # and the BRIEF sampling, as in the JAX package
             img_blur = pyramid.gaussian_blur(img_l, self.gauss)

@@ -4,8 +4,11 @@
 ``best_two`` launches the kernel for CUDA tensors and uses the plain twin
 ``reference_best_two`` for CPU tensors; it never falls back from one to the
 other, and unlike the JAX dispatcher it has no size threshold: every
-guided search on the card goes through the kernel. ``best_two.launches``
-counts kernel launches.
+guided search on the card goes through the kernel. Binary candidates may
+come packed (``pack_bits``, once per candidate set, shared by several
+searches); the binary search is then one launch, since each warp packs
+its own queries. ``best_two.launches`` counts search launches,
+``pack_bits.launches`` pack launches.
 
 Semantics (both versions): for each query, among candidates with
 |du|, |dv| <= q_rad (a negative radius disables the row), q_slo <= c_size
@@ -32,26 +35,99 @@ _FLOAT_WIDTHS = (48, 64, 128)
 
 
 @functools.cache
-def _lib():
+def _lib(device_index: int):
+    """The kernels, loaded, with the binary kernels' shared-memory limit
+    raised on this device (best_two_init)."""
     lib = cuda_build.load("best_two")
-    lib.best_two_bits.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P] + [_P] * 11
+    lib.best_two_init.argtypes = []
+    lib.best_two_init.restype = _I
+    lib.pack_bits.argtypes = [_P, _P, _I, _I, _I, _P]
+    lib.pack_bits.restype = _I
+    lib.best_two_bits.argtypes = [_P, _P, _I, _I, _I, _I] + [_P] * 11
     lib.best_two_bits.restype = _I
     lib.best_two_f32.argtypes = [_P, _P, _I, _I, _I] + [_P] * 11
     lib.best_two_f32.restype = _I
+    with torch.cuda.device(device_index):
+        err = lib.best_two_init()
+    if err != 0:
+        raise RuntimeError(f"best_two_init failed on cuda:{device_index}: CUDA error {err}")
     return lib
 
 
-def reference_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
-    """Plain PyTorch twin of the kernel: the dense (Nq, Nc) distance
-    matrix, the gates as a mask, then matching.best_two."""
-    from . import matching
+def _nwords(d: int) -> int:
+    return (d + 31) // 32
 
-    dist = matching.descriptor_distance_matrix(q_feat, c_feat)
+
+def pack_bits_plain(bits):
+    """(N, D) {0,1} uint8 -> (N, ceil(D/32)) int32 words: bit k of word w
+    is bits[:, 32 w + k] (little-endian), the tail past D is zero."""
+    n, d = bits.shape
+    nwords = _nwords(d)
+    padded = torch.zeros((n, nwords * 32), dtype=torch.int64, device=bits.device)
+    padded[:, :d] = bits != 0
+    weights = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
+        32, device=bits.device)
+    words = (padded.view(n, nwords, 32) * weights).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def unpack_bits_plain(words, d: int):
+    """Inverse of ``pack_bits_plain``: (N, ceil(D/32)) int32 -> (N, D) uint8."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :d].to(torch.uint8)
+
+
+def pack_bits(bits):
+    """Binary descriptors (N, D) {0,1} uint8 -> (N, ceil(D/32)) int32
+    packed words (``pack_bits_plain``'s layout), the candidate form
+    ``best_two`` takes with ``c_dim=D``. On the card: one launch."""
+    dev = bits.device
+    if dev.type == "cpu":
+        return pack_bits_plain(bits)
+    if dev.type != "cuda":
+        raise ValueError(f"pack_bits: unsupported device {dev}")
+    if bits.dtype != torch.uint8 or bits.dim() != 2 or not bits.is_contiguous():
+        raise ValueError(f"pack_bits: need contiguous 2-D uint8 bits, got {bits.dtype} "
+                         f"{tuple(bits.shape)} contiguous={bits.is_contiguous()}")
+    n, d = bits.shape
+    words = torch.empty((n, _nwords(d)), dtype=torch.int32, device=dev)
+    if n == 0:
+        return words
+    lib = _lib(dev.index)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pack_bits(bits.data_ptr(), words.data_ptr(), n, d, words.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"pack_bits kernel launch failed: CUDA error {err}")
+    pack_bits.launches += 1
+    return words
+
+
+pack_bits.launches = 0
+
+
+def gate_mask(q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
+    """(Nq, Nc) bool: the pairs that pass the window, size and validity
+    gates."""
     du = torch.abs(q_uv[:, None, 0] - c_uv[None, :, 0])
     dv = torch.abs(q_uv[:, None, 1] - c_uv[None, :, 1])
     ok = (du <= q_rad[:, None]) & (dv <= q_rad[:, None])
     ok &= (c_size[None, :] >= q_slo[:, None]) & (c_size[None, :] <= q_shi[:, None])
-    ok &= c_valid[None, :]
+    return ok & c_valid[None, :]
+
+
+def reference_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid,
+                       c_dim=None):
+    """Plain PyTorch twin of the kernel: the dense (Nq, Nc) distance
+    matrix, the gates as a mask, then matching.best_two. With ``c_dim``,
+    c_feat holds packed words (``pack_bits``) of c_dim-bit descriptors."""
+    from . import matching
+
+    if c_dim is not None:
+        c_feat = unpack_bits_plain(c_feat, c_dim)
+    dist = matching.descriptor_distance_matrix(q_feat, c_feat)
+    ok = gate_mask(q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid)
     best, idx, second = matching.best_two(dist, ok)
     idx = torch.where(best < INF, idx, torch.full_like(idx, -1))
     return best, idx, second
@@ -65,20 +141,26 @@ def _check(name, t, dtype, shape):
         )
 
 
-def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
+def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid, c_dim=None):
     """Masked best/second-best search. q_feat (Nq, D), c_feat (Nc, D):
     uint8 {0,1} with D in {256, 384, 488, 512} or float32 with D in
-    {48, 64, 128}; q_uv (Nq, 2), q_rad/q_slo/q_shi (Nq,), c_uv (Nc, 2),
-    c_size (Nc,) float32; c_valid (Nc,) bool. Returns (best, idx, second):
-    (Nq,) float32, int32, float32."""
+    {48, 64, 128}; or, binary only, c_feat (Nc, ceil(D/32)) int32 packed
+    words from ``pack_bits`` with c_dim = D. q_uv (Nq, 2), q_rad/q_slo/
+    q_shi (Nq,), c_uv (Nc, 2), c_size (Nc,) float32; c_valid (Nc,) bool.
+    Returns (best, idx, second): (Nq,) float32, int32, float32."""
     dev = q_feat.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"best_two: unsupported device {dev}")
     args = (q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid)
     if any(t.device != dev for t in args):
         raise ValueError(f"best_two: inputs on {sorted({str(t.device) for t in args})}")
+    if c_dim is not None and (q_feat.dtype != torch.uint8 or q_feat.shape[1] != c_dim
+                              or c_feat.dtype != torch.int32 or c_feat.dim() != 2
+                              or c_feat.shape[1] != _nwords(c_dim)):
+        raise ValueError(f"best_two: packed candidates {c_feat.dtype} {tuple(c_feat.shape)} of "
+                         f"{c_dim} bits for {q_feat.dtype} {tuple(q_feat.shape)} queries")
     if dev.type == "cpu":
-        best, idx, second = reference_best_two(*args)
+        best, idx, second = reference_best_two(*args, c_dim=c_dim)
         return best, idx.to(torch.int32), second
     nq, d = q_feat.shape
     nc = c_feat.shape[0]
@@ -88,7 +170,12 @@ def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
         raise ValueError(f"best_two: unsupported descriptors {q_feat.dtype} x {d}")
     f32 = torch.float32
     _check("q_feat", q_feat, q_feat.dtype, (nq, d))
-    _check("c_feat", c_feat, q_feat.dtype, (nc, d))
+    if c_dim is None:
+        _check("c_feat", c_feat, q_feat.dtype, (nc, d))
+    else:
+        _check("c_feat", c_feat, torch.int32, (nc, _nwords(d)))
+        if c_feat.data_ptr() % 16:
+            raise ValueError("best_two: packed candidate words must be 16-byte aligned")
     _check("q_uv", q_uv, f32, (nq, 2))
     for name, t in (("q_rad", q_rad), ("q_slo", q_slo), ("q_shi", q_shi)):
         _check(name, t, f32, (nq,))
@@ -103,18 +190,16 @@ def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
         return best, idx, second
     if nc == 0:
         return best.fill_(INF), idx.fill_(-1), second.fill_(INF)
+    if binary and c_dim is None:
+        c_feat = pack_bits(c_feat)
     side = [t.data_ptr() for t in (q_uv, q_rad, q_slo, q_shi, c_uv, c_size, c_valid,
                                    best, idx, second)]
-    lib = _lib()
+    lib = _lib(dev.index)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if binary:
-            nwords = (d + 31) // 32  # 8, 12 or 16
-            q_words = torch.empty((nq, nwords), dtype=torch.int32, device=dev)
-            c_words = torch.empty((nc, nwords), dtype=torch.int32, device=dev)
             err = lib.best_two_bits(q_feat.data_ptr(), c_feat.data_ptr(), nq, nc, d,
-                                    nwords, q_words.data_ptr(), c_words.data_ptr(),
-                                    *side, stream)
+                                    _nwords(d), *side, stream)
         else:
             err = lib.best_two_f32(q_feat.data_ptr(), c_feat.data_ptr(), nq, nc, d,
                                    *side, stream)

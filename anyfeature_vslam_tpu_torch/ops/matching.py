@@ -108,15 +108,22 @@ def finish_match(best, best_idx, second, n_cand: int, match_th, ratio=None,
     return dict(idx=idx, dist=best, valid=valid)
 
 
-def guided_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
+def guided_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid,
+                    c_words=None):
     """Masked best/second-best search: kernel K2 for CUDA tensors (every
     call, no size threshold), its plain twin for CPU tensors. Side inputs
-    are brought to the kernel's float32 / bool layout here."""
+    are brought to the kernel's float32 / bool layout here. c_words:
+    optional ``cuda_match.pack_bits(c_feat)``, packed once by a caller whose
+    searches share the candidates; the search then takes them in place of
+    c_feat."""
     f32 = torch.float32
+    c_dim = None
+    if c_words is not None:
+        c_feat, c_dim = c_words, c_feat.shape[1]
     return cuda_match.best_two(
         q_feat.contiguous(), c_feat.contiguous(),
         q_uv.to(f32).contiguous(), c_uv.to(f32).contiguous(),
         q_rad.to(f32).contiguous(), q_slo.to(f32).contiguous(),
         q_shi.to(f32).contiguous(), c_size.to(f32).contiguous(),
-        c_valid.to(torch.bool).contiguous(),
+        c_valid.to(torch.bool).contiguous(), c_dim=c_dim,
     )

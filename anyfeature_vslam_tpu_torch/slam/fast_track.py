@@ -4,7 +4,8 @@
 keypoint undistortion and ``fused_track_step``: the motion-model guided
 search with a reference-keyframe fallback, the local-map search, and up to
 three motion-only pose LMs (reference Tracking.cc:619-836). Every guided
-search is a launch of kernel K2 on the card.
+search is a launch of kernel K2 on the card; the frame's descriptors are
+packed once (``cuda_match.pack_bits``) for the three searches over them.
 
 The JAX package runs the frame as one XLA program with two ``lax.cond``s.
 Here it runs eagerly; the motion branch is a Python ``if`` on
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import camera as cam_ops
-from ..ops import pose_opt
+from ..ops import cuda_match, pose_opt
 from . import frame_ops
 
 
@@ -65,6 +66,9 @@ def fused_track_step(
     dev = f_uv.device
     if isinstance(use_motion, torch.Tensor):
         use_motion = bool(use_motion.item())
+    # the candidates of the motion search, its retry and the local-map
+    # search, packed once
+    f_words = cuda_match.pack_bits(f_bits.contiguous())
 
     ok_a = False
     use_mm = torch.zeros((), dtype=torch.bool, device=dev)
@@ -83,7 +87,7 @@ def fused_track_step(
         res_mm = frame_ops.match_frame_to_frame_2r(
             last_uv, last_bits, last_size, has_pt, uv_proj, proj_valid,
             f_uv, f_bits, f_size, f_valid, last_angle, f_angle,
-            motion_radius, match_th, min_motion_matches,
+            motion_radius, match_th, min_motion_matches, f_words,
         )
         mm_pt = _scatter_drop(n, res_mm["idx"], res_mm["valid"], last_match_pt, -1)
         mm_pos = _scatter_drop(n, res_mm["idx"], res_mm["valid"], last_match_pos, 0.0)
@@ -115,7 +119,7 @@ def fused_track_step(
     res_lm = frame_ops.project_and_match(
         blk_pos, blk_normal, blk_min_dist, blk_max_dist, blk_ref_size, blk_ref_dist,
         blk_bits, blk_valid & ~already, pose1, fx, fy, cx, cy, bounds_lo, bounds_hi,
-        f_uv, f_bits, f_size, f_valid, local_radius, match_th, local_ratio,
+        f_uv, f_bits, f_size, f_valid, local_radius, match_th, local_ratio, f_words,
     )
     add_pt = _scatter_drop(n, res_lm["idx"], res_lm["valid"], blk_ids.to(torch.int32), -1)
     add_pos = _scatter_drop(n, res_lm["idx"], res_lm["valid"], blk_pos, 0.0)

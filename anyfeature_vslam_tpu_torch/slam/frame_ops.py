@@ -2,7 +2,10 @@
 anyfeature_vslam_tpu/slam/frame_ops.py that the tracked frame runs).
 
 Every search goes through ``matching.guided_best_two``, so on the card each
-one is a launch of kernel K2. Frustum check: Frame::isInFrustum (reference
+one is a launch of kernel K2. The searches over the current frame's
+keypoints take ``f_words``, the frame's descriptors packed once by the
+caller (``cuda_match.pack_bits``); without them the search packs its
+candidates itself, one more launch. Frustum check: Frame::isInFrustum (reference
 src/Frame.cc:276-331); searches: SearchByProjection and its frame-to-frame
 form (reference src/FeatureMatcher.cc:73-154, :1291-1404).
 """
@@ -48,7 +51,8 @@ def _disabled(mask, radius):
 
 
 def match_by_projection(pt_uv, pt_pred_size, pt_viewcos, pt_bits, pt_visible,
-                        f_uv, f_bits, f_size, f_valid, base_radius, match_th, ratio):
+                        f_uv, f_bits, f_size, f_valid, base_radius, match_th, ratio,
+                        f_words=None):
     """Map points -> frame keypoints: window base_radius * RadiusByViewingCos
     * predicted size * radius scale, size band around the prediction,
     ratio test. Returns dict(idx, dist, valid) over points."""
@@ -59,7 +63,7 @@ def match_by_projection(pt_uv, pt_pred_size, pt_viewcos, pt_bits, pt_visible,
     radius = scale * r_view * size_q
     best, idx, second = matching.guided_best_two(
         pt_bits, f_bits, pt_uv, f_uv, _disabled(pt_visible, radius),
-        size_q / 1.5, size_q * 1.5, f_size, f_valid,
+        size_q / 1.5, size_q * 1.5, f_size, f_valid, c_words=f_words,
     )
     return matching.finish_match(best, idx, second, f_bits.shape[0], match_th,
                                  ratio=ratio, unique=True)
@@ -67,13 +71,13 @@ def match_by_projection(pt_uv, pt_pred_size, pt_viewcos, pt_bits, pt_visible,
 
 def match_frame_to_frame(uv_last, bits_last, size_last, has_pt_last, uv_proj, proj_valid,
                          f_uv, f_bits, f_size, f_valid, angle_last, angle_cur_of_frame,
-                         radius, match_th):
+                         radius, match_th, f_words=None):
     """Motion-model search: last frame's keypoints with map points, at their
     projections in the current frame; rotation-consistency filtered."""
     radius_q = radius * torch.clamp(size_last, 1.0, MAX_SIZE)
     best, idx, second = matching.guided_best_two(
         bits_last, f_bits, uv_proj, f_uv, _disabled(has_pt_last & proj_valid, radius_q),
-        size_last / 1.5, size_last * 1.5, f_size, f_valid,
+        size_last / 1.5, size_last * 1.5, f_size, f_valid, c_words=f_words,
     )
     return matching.finish_match(best, idx, second, f_bits.shape[0], match_th,
                                  angle_q=angle_last, angle_c=angle_cur_of_frame, unique=True)
@@ -81,14 +85,14 @@ def match_frame_to_frame(uv_last, bits_last, size_last, has_pt_last, uv_proj, pr
 
 def match_frame_to_frame_2r(uv_last, bits_last, size_last, has_pt_last, uv_proj, proj_valid,
                             f_uv, f_bits, f_size, f_valid, angle_last, angle_cur_of_frame,
-                            radius, match_th, min_matches):
+                            radius, match_th, min_matches, f_words=None):
     """Motion-model search at radius and 2 * radius (reference widen-and-
     retry, src/Tracking.cc:747-757); the narrow result wins when it has at
     least min_matches. Chosen on the device: no host sync."""
     args = (uv_last, bits_last, size_last, has_pt_last, uv_proj, proj_valid,
             f_uv, f_bits, f_size, f_valid, angle_last, angle_cur_of_frame)
-    res1 = match_frame_to_frame(*args, radius, match_th)
-    res2 = match_frame_to_frame(*args, 2.0 * radius, match_th)
+    res1 = match_frame_to_frame(*args, radius, match_th, f_words)
+    res2 = match_frame_to_frame(*args, 2.0 * radius, match_th, f_words)
     use1 = res1["valid"].sum() >= min_matches
     res = {k: torch.where(use1, res1[k], res2[k]) for k in res1}
     res["n_matches"] = res["valid"].sum()
@@ -98,7 +102,7 @@ def match_frame_to_frame_2r(uv_last, bits_last, size_last, has_pt_last, uv_proj,
 def project_and_match(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_ref_size,
                       pt_ref_dist, pt_bits, pt_valid, t_cw, fx, fy, cx, cy,
                       bound_lo, bound_hi, f_uv, f_bits, f_size, f_valid,
-                      base_radius, match_th, ratio):
+                      base_radius, match_th, ratio, f_words=None):
     """SearchLocalPoints (reference src/Tracking.cc:988-1028): frustum
     projection + guided projection search. Returns the match dict plus the
     visibility mask."""
@@ -108,7 +112,8 @@ def project_and_match(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_ref_size,
     )
     visible = visible & pt_valid
     res = match_by_projection(uv, pred_size, viewcos, pt_bits, visible,
-                              f_uv, f_bits, f_size, f_valid, base_radius, match_th, ratio)
+                              f_uv, f_bits, f_size, f_valid, base_radius, match_th, ratio,
+                              f_words)
     res["visible"] = visible
     return res
 

@@ -7,24 +7,32 @@ Drives the port (anyfeature_vslam_tpu_torch, never the JAX package) through
 its main path, the orb32 tracked frame at 640x480 with 1000 features and a
 4096-row local-map block:
 
-  1. builds both hand-written CUDA kernels from csrc/ with nvcc;
-  2. K1 (FAST + NMS) on all 8 pyramid levels of a rendered frame against
-     its plain PyTorch twin: bit-exact;
-  3. K2 (masked best/second) on binary 4096x1000 and 1000x1000 searches
-     against its twin: exact; the float path to atol 1e-2;
+  1. builds the hand-written CUDA kernels from csrc/ with nvcc;
+  2. K1 (FAST + NMS) on all 8 pyramid levels of a rendered frame, in one
+     launch, against its plain PyTorch twin: bit-exact;
+  3. pack_bits at every binary width and K2 (masked best/second) on random
+     binary 4096x1000 and 1000x1000 searches against their twins: exact;
+     the float path to atol 1e-2;
   4. the slice on a small input (320x240) on the card against the same
      code on the CPU (plain twins);
   5. the slice: fused_extract_track over 25 tracked frames of the rendered
      benchmark sequence against a ground-truth map; every frame must track
      with >= 50 inliers, the first 10 within 2 cm / 0.5 deg of ground
-     truth (see BOUNDED_FRAMES), and the kernels' launch counters must
-     show the frames went through them;
+     truth (see BOUNDED_FRAMES), and the launch counters must show one K1
+     launch per frame, one K2 launch per search and one pack per
+     candidate set; then
+     5b. the kernels' device time (torch.profiler) over the same frames;
+     5c. K2 and pack_bits at the recorded inputs of one frame's searches:
+         exact, with device, eager (events around calls, host issue
+         included) and CUDA-graph replay times beside the plain twin and
+         the bound;
   6. where a frame's time goes: the frame and its stages run alone, host
      syncs attributed to source lines, a torch.profiler summary;
   7. flagship.tracking_step once on make_example(480, 640).
 
 Prints the card (nvidia-smi name, power limit) first, then per-phase lines,
-one JSON line of kernel results, and as the last line
+one JSON line of kernel results (per tracked frame: launches, device time,
+eager and graph times, plain twin, bound), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is present.
@@ -61,7 +69,8 @@ def log(msg):
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
-    """Mean device time of fn() in ms (CUDA events around `reps` calls)."""
+    """Eager time of fn() in ms: CUDA events around `reps` calls, so the
+    host's issue time of each call is inside it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -75,11 +84,112 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps=20):
+    """Time of one replay of a CUDA graph that captured fn() once: CUDA
+    events around `reps` replays, so no host issue time. The wrappers
+    launch on torch.cuda.current_stream(), the capture stream here."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# Kernel names as the profiler reports them (mangled templates: matched by
+# substring), and the H100 SXM peaks the bounds are taken against: HBM3
+# bytes/s and float32 operations/s outside the tensor cores, one operation
+# per compare, min/max, xor or popcount.
+PROFILED_KERNELS = ("fast_nms_kernel", "pack_bits_kernel", "best_two_bits_kernel")
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms_by_kernel(torch, prof):
+    """{kernel substring: (launches, total device ms)} from a profile."""
+    out = {k: (0, 0.0) for k in PROFILED_KERNELS}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in PROFILED_KERNELS:
+            if k in e.name:
+                n, t = out[k]
+                out[k] = (n + 1, t + e.device_time / 1e3)
+    return out
+
+
+def k1_work(torch, levels, threshold):
+    """Bytes, operations and live pixels of K1 on these levels: each pixel
+    read and written once; 35 operations per pixel (16 ring differences, 8
+    cardinal tests, the 3x3 NMS), and 162 more (the 128 min/max of the arc
+    tree, its two 15-step reductions, the threshold tests) at a live pixel,
+    where an adjacent pair of cardinal points is both brighter or both
+    darker than the threshold: only there can the score be non-zero."""
+    import torch.nn.functional as F
+
+    from anyfeature_vslam_tpu_torch.frontend.fast import CIRCLE_OFFSETS
+
+    nbytes = nops = n_live = 0
+    for lev in levels:
+        h, w = lev.shape
+        pad = F.pad(lev[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
+        card = [pad[3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - lev
+                for dy, dx in (CIRCLE_OFFSETS[k] for k in (0, 4, 8, 12))]
+        live = torch.zeros_like(lev, dtype=torch.bool)
+        for k in range(4):
+            a, b = card[k], card[(k + 1) % 4]
+            live |= ((a > threshold) & (b > threshold)) | ((a < -threshold) & (b < -threshold))
+        n = int(live[3:h - 3, 3:w - 3].sum())
+        nbytes += 8 * h * w
+        nops += 35 * h * w + 162 * n
+        n_live += n
+    return nbytes, nops, n_live
+
+
+def k2_work(args, packed_candidates):
+    """Bytes and operations of one binary K2 search: inputs read once
+    (query bit planes, candidate bit planes or packed words, 20 B of gate
+    data per query and 13 per candidate), 12 B written per query; 8 gate
+    operations per pair, and an xor and a popcount per word of each pair
+    that passes."""
+    from anyfeature_vslam_tpu_torch.ops.cuda_match import gate_mask
+
+    q, c, *side = args
+    nq, d = q.shape
+    nc = c.shape[0]
+    nwords = (d + 31) // 32
+    passes = int(gate_mask(*side).sum())
+    c_bytes = nc * nwords * 4 if packed_candidates else nc * d
+    nbytes = nq * d + 32 * nq + c_bytes + 13 * nc
+    return nbytes, 8 * nq * nc + 2 * nwords * passes, passes
+
+
 def track_frames(torch, sc, cam, ext, state, frames, device):
     """Run fused_extract_track over `frames` (pre-rendered uint8 images of
     frames FIRST_TRACKED..), chaining the carry and the pose prediction as
     the sequential tracker does. Returns per frame (pose, n_inliers,
-    track_ok, ms, feats, match_pt)."""
+    track_ok, ms, feats, match_pt, used_motion)."""
     from anyfeature_vslam_tpu_torch.slam import fast_track
     from torch_slice_scene import FIRST_TRACKED, TRACK_PARAMS
 
@@ -99,7 +209,7 @@ def track_frames(torch, sc, cam, ext, state, frames, device):
             bounds_lo=lo, bounds_hi=hi, fx=sc.fx, fy=sc.fy, cx=sc.cx, cy=sc.cy,
             **TRACK_PARAMS,
         )
-        pose, pt, n_in, _, ok, _, pos = out
+        pose, pt, n_in, _, ok, used_mm, pos = out
         state.update(last_uv=feats["uv_und"], last_bits=feats["desc_bits"],
                      last_size=feats["size"], last_angle=feats["angle"],
                      last_match_pt=pt, last_match_pos=pos)
@@ -107,7 +217,7 @@ def track_frames(torch, sc, cam, ext, state, frames, device):
         if device.type == "cuda":
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        out_rows.append((pose, int(n_in), bool(ok), ms, feats, pt))
+        out_rows.append((pose, int(n_in), bool(ok), ms, feats, pt, bool(used_mm)))
     return out_rows
 
 
@@ -163,8 +273,11 @@ def main() -> int:
     img = torch.from_numpy(frames[0]).to(device).float()
     levels = [l.contiguous() for l in pyramid.build_pyramid(img, ext.resize_mats())]
     k1_err = 0.0
-    for lvl, lev in enumerate(levels):
-        got = cuda_fast.fast_nms(lev, cfg.detect_th)
+    before = cuda_fast.fast_nms.launches
+    got_levels = cuda_fast.fast_nms_levels(levels, cfg.detect_th)
+    if cuda_fast.fast_nms.launches != before + 1:
+        raise AssertionError("K1: the 8 levels took more than one launch")
+    for lvl, (lev, got) in enumerate(zip(levels, got_levels)):
         want = cuda_fast.fast_nms_plain(lev, cfg.detect_th)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -173,9 +286,19 @@ def main() -> int:
             raise AssertionError(f"K1 level {lvl} {tuple(lev.shape)}: not bit-exact "
                                  f"(max abs err {err}, {int((got != want).sum())} px)")
         log(f"[K1] level {lvl} {tuple(lev.shape)}: bit-exact, {int((got > 0).sum())} corners")
-    k1_ms = time_ms(torch, lambda: [cuda_fast.fast_nms(l, cfg.detect_th) for l in levels])
+
+    def k1_frame():
+        return cuda_fast.fast_nms_levels(levels, cfg.detect_th)
+
+    k1_ms = time_ms(torch, k1_frame)
+    k1_graph_ms = graph_ms(torch, k1_frame)
     k1_plain_ms = time_ms(torch, lambda: [cuda_fast.fast_nms_plain(l, cfg.detect_th) for l in levels])
-    log(f"[K1] 8 levels per frame: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+    k1_bytes, k1_ops, k1_live = k1_work(torch, levels, cfg.detect_th)
+    k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
+    n_px = sum(l.numel() for l in levels)
+    log(f"[K1] 8 levels per frame, one launch: eager {k1_ms:.4f} ms, graph {k1_graph_ms:.4f} ms, "
+        f"plain {k1_plain_ms:.4f} ms, bound {k1_bound_ms:.5f} ms ({k1_bound_by}: {k1_bytes} B, "
+        f"{k1_ops} operations; {k1_live} of {n_px} pixels live at the cardinal test)")
 
     # ---- 3. K2 at the main path's shapes
     rng = np.random.default_rng(0)
@@ -200,8 +323,14 @@ def main() -> int:
         return (torch.from_numpy(q).to(device), torch.from_numpy(c).to(device),
                 q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid)
 
+    for d in (256, 384, 488, 512):
+        bits = torch.from_numpy(rng.integers(0, 2, (1000, d)).astype(np.uint8)).to(device)
+        words = cuda_match.pack_bits(bits)
+        torch.cuda.synchronize()
+        if not torch.equal(words, cuda_match.pack_bits_plain(bits)):
+            raise AssertionError(f"pack_bits D={d}: differs from the plain version")
+    log("[K2] pack_bits 1000 x {256, 384, 488, 512}: equal to the plain version")
     k2_err = 0.0
-    k2_times = {}
     for nq, nc in ((4096, 1000), (1000, 1000)):
         args = k2_case(nq, nc, True)
         b, i, s = cuda_match.best_two(*args)
@@ -212,10 +341,12 @@ def main() -> int:
                                  f"({int((i.long() != ri).sum())} idx)")
         k2_err = max(k2_err, float((b - rb).abs().max()), float((s - rs).abs().max()))
         k_ms = time_ms(torch, lambda: cuda_match.best_two(*args))
+        g_ms = graph_ms(torch, lambda: cuda_match.best_two(*args))
         p_ms = time_ms(torch, lambda: cuda_match.reference_best_two(*args))
-        k2_times[(nq, nc)] = (k_ms, p_ms)
-        log(f"[K2] binary {nq}x{nc}: exact ({int((i >= 0).sum())} matched); "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        b_ms, b_by = bound(*k2_work(args, False)[:2])
+        log(f"[K2] binary {nq}x{nc} random: exact ({int((i >= 0).sum())} matched, "
+            f"{int(cuda_match.gate_mask(*args[2:]).sum())} pairs pass the gates); eager {k_ms:.4f} ms, "
+            f"graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     args = k2_case(1000, 1000, False)
     b, i, s = cuda_match.best_two(*args)
     rb, ri, rs = cuda_match.reference_best_two(*args)
@@ -266,11 +397,13 @@ def main() -> int:
     torch.cuda.synchronize()
     cuda_fast.fast_nms.launches = 0
     cuda_match.best_two.launches = 0
+    cuda_match.pack_bits.launches = 0
     rows = track_frames(torch, sc, cam, ext, state, frames, device)
     k1_launches = cuda_fast.fast_nms.launches
     k2_launches = cuda_match.best_two.launches
+    pack_launches = cuda_match.pack_bits.launches
     failures = []
-    for k, (pose, n_in, ok, ms, feats, _) in enumerate(rows):
+    for k, (pose, n_in, ok, ms, feats, _, _) in enumerate(rows):
         fid = FIRST_TRACKED + k
         p = pose.cpu().numpy()
         rot, trans = pose_error(p, sc.poses[fid])
@@ -286,25 +419,123 @@ def main() -> int:
         f"({len(frame_ms)} frames after {N_WARMUP_FRAMES} warm-up; min {min(frame_ms):.2f}, "
         f"max {max(frame_ms):.2f}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    log(f"[slice] launches: K1 {k1_launches} (8 x {len(rows)} = {8 * len(rows)}), "
-        f"K2 {k2_launches} (>= 3 x {len(rows)})")
+    # a frame searches 3 times (motion, its 2x retry, local map) and packs
+    # its keypoints once; the reference-keyframe fallback adds a search and
+    # the pack of the keyframe's descriptors
+    n_fallback = sum(not r[6] for r in rows)
+    want_k2 = 3 * len(rows) + n_fallback
+    want_pack = len(rows) + n_fallback
+    log(f"[slice] launches: K1 {k1_launches} (1 x {len(rows)} frames), K2 {k2_launches} "
+        f"({want_k2} searches, {n_fallback} fallbacks), pack {pack_launches} ({want_pack})")
     if failures:
         raise AssertionError(f"frames {failures} did not track within the bounds")
-    if k1_launches != 8 * len(rows) or k2_launches < 3 * len(rows):
-        raise AssertionError("the main path did not go through both kernels")
+    if k1_launches != len(rows) or k2_launches != want_k2 or pack_launches != want_pack:
+        raise AssertionError("the main path did not go through the kernels as designed")
 
-    # ---- 6. where a tracked frame's time goes, and its host syncs
-    import traceback
-    import warnings
+    # ---- 5b. the kernels' device time over the same frames, profiled
+    from torch.profiler import ProfilerActivity, profile
 
-    from anyfeature_vslam_tpu_torch.ops import pose_opt
-    from anyfeature_vslam_tpu_torch.slam import fast_track, frame_ops
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        track_frames(torch, sc, cam, ext, state, frames, device)
+    dev_frames = device_ms_by_kernel(torch, prof)
+    del prof
+    log(f"[device] torch.profiler kernel events over the {len(frames)} frames of phase 5 "
+        f"({time.perf_counter() - t0:.1f} s, parsing included):")
+    for k, (n, t) in dev_frames.items():
+        log(f"[device]   {k}: {n} launches ({n / len(frames):.2f} per frame), device "
+            f"{t / len(frames):.5f} ms per frame, {t / max(n, 1):.5f} ms per launch")
+
+    # ---- 5c. K2 at the inputs of the searches of one tracked frame
+    from anyfeature_vslam_tpu_torch.ops import matching
+    from anyfeature_vslam_tpu_torch.slam import fast_track
     from torch_slice_scene import TRACK_PARAMS
 
     lo, hi = (torch.from_numpy(b).to(device) for b in sc.bounds)
     last = torch.from_numpy(sc.poses[FIRST_TRACKED - 1]).to(device)
     pred = fast_track.predict_pose(last, torch.from_numpy(sc.poses[FIRST_TRACKED - 2]).to(device))
     img_dev = torch.from_numpy(frames[0]).to(device)
+    guided = matching.guided_best_two
+    searches = []
+
+    def record(*a, **kw):
+        searches.append((a, kw))
+        return guided(*a, **kw)
+
+    matching.guided_best_two = record
+    try:
+        # the motion-model frame, then the same frame forced onto the
+        # reference-keyframe search
+        for use_motion in (True, False):
+            fast_track.fused_extract_track(
+                img_dev, cam, ext, **state, pred_pose=pred, last_pose=last,
+                use_motion=use_motion, bounds_lo=lo, bounds_hi=hi, fx=sc.fx, fy=sc.fy,
+                cx=sc.cx, cy=sc.cy, **TRACK_PARAMS)
+            if use_motion:
+                n_motion = len(searches)
+    finally:
+        matching.guided_best_two = guided
+    labels = ["motion r", "motion 2r"] + ["ref-KF"] * (n_motion - 3) + ["local map"]
+    real = list(zip(labels, searches[:n_motion])) + [("ref-KF", searches[n_motion])]
+    frame_searches = n_motion  # the searches the frame ran
+    k2_real = []
+    for label, (a, kw) in real:
+        b, i, s = guided(*a, **kw)
+        rb, ri, rs = cuda_match.reference_best_two(*a)
+        torch.cuda.synchronize()
+        if not (torch.equal(b, rb) and torch.equal(i.long(), ri) and torch.equal(s, rs)):
+            raise AssertionError(f"K2 at the {label} search of frame {FIRST_TRACKED}: "
+                                 f"differs from the plain version")
+        k2_err = max(k2_err, float((b - rb).abs().max()), float((s - rs).abs().max()))
+        e_ms = time_ms(torch, lambda: guided(*a, **kw))
+        g_ms = graph_ms(torch, lambda: guided(*a, **kw))
+        p_ms = time_ms(torch, lambda: cuda_match.reference_best_two(*a))
+        nbytes, nops, passes = k2_work(a, "c_words" in kw)
+        b_ms, b_by = bound(nbytes, nops)
+        # device time: the mean of the kernels' profiler events (a short
+        # profile can miss its first events), times the launches per call
+        # that the wrappers count
+        n0, p0 = cuda_match.best_two.launches, cuda_match.pack_bits.launches
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(20):
+                guided(*a, **kw)
+            torch.cuda.synchronize()
+        n_match = (cuda_match.best_two.launches - n0) / 20
+        n_pack = (cuda_match.pack_bits.launches - p0) / 20
+        dk = device_ms_by_kernel(torch, prof)
+        d_ms = n_match * dk["best_two_bits_kernel"][1] / max(dk["best_two_bits_kernel"][0], 1)
+        d_pack_ms = n_pack * dk["pack_bits_kernel"][1] / max(dk["pack_bits_kernel"][0], 1)
+        k2_real.append(dict(label=label, nq=a[0].shape[0], nc=a[1].shape[0], passes=passes,
+                            eager_ms=e_ms, graph_ms=g_ms, plain_ms=p_ms, device_ms=d_ms,
+                            pack_device_ms=d_pack_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[K2 real] frame {FIRST_TRACKED} {label} {a[0].shape[0]}x{a[1].shape[0]}: exact "
+            f"({int((i >= 0).sum())} matched, {passes} pairs pass the gates, "
+            f"{100 * passes / (a[0].shape[0] * a[1].shape[0]):.3f}%); {n_match:g} search + "
+            f"{n_pack:g} pack launches; device search {d_ms:.5f} ms + pack {d_pack_ms:.5f} ms; "
+            f"eager {e_ms:.4f} ms, graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+
+    # pack_bits at the frame's keypoints, the candidates of its searches
+    f_bits = searches[0][0][1]
+    f_words = cuda_match.pack_bits(f_bits)
+    torch.cuda.synchronize()
+    if not torch.equal(f_words, cuda_match.pack_bits_plain(f_bits)):
+        raise AssertionError(f"pack_bits at frame {FIRST_TRACKED}: differs from the plain version")
+    pack_ms = time_ms(torch, lambda: cuda_match.pack_bits(f_bits))
+    pack_graph_ms = graph_ms(torch, lambda: cuda_match.pack_bits(f_bits))
+    pack_plain_ms = time_ms(torch, lambda: cuda_match.pack_bits_plain(f_bits))
+    n, d = f_bits.shape
+    pack_bound_ms, pack_bound_by = bound(n * d + f_words.numel() * 4, n * d)
+    log(f"[pack] frame {FIRST_TRACKED} {n}x{d}: equal; eager {pack_ms:.4f} ms, graph "
+        f"{pack_graph_ms:.4f} ms, plain {pack_plain_ms:.4f} ms, "
+        f"bound {pack_bound_ms:.5f} ms ({pack_bound_by})")
+
+    # ---- 6. where a tracked frame's time goes, and its host syncs
+    import traceback
+    import warnings
+
+    from anyfeature_vslam_tpu_torch.ops import pose_opt
+    from anyfeature_vslam_tpu_torch.slam import frame_ops
 
     # host time of the frame and of its stages, each run alone (median of 7)
     def host_ms(fn, reps=7):
@@ -319,12 +550,13 @@ def main() -> int:
 
     f0 = ext(img_dev.float())
     f0_uv = cam_ops.undistort_points(cam, f0["xy"])
+    f0_words = cuda_match.pack_bits(f0["desc_bits"])
     blk = [state[k] for k in convert.BLOCK_KEYS[1:]]
     stages = {
         "whole tracked frame (fused_extract_track)": lambda: fast_track.fused_extract_track(
             img_dev, cam, ext, **state, pred_pose=pred, last_pose=last, use_motion=True,
             bounds_lo=lo, bounds_hi=hi, fx=sc.fx, fy=sc.fy, cx=sc.cx, cy=sc.cy, **TRACK_PARAMS),
-        "extraction (pyramid, K1 x 8, top-k, angle, BRIEF)": lambda: ext(img_dev.float()),
+        "extraction (pyramid, K1 once, top-k, angle, BRIEF)": lambda: ext(img_dev.float()),
         "one pose LM (4 x 10 steps, 1000 observations)": lambda: pose_opt.pose_optimize(
             last, state["last_match_pos"], state["last_uv"], f0["inv_sigma2"],
             state["last_match_pt"] >= 0, sc.fx, sc.fy, sc.cx, sc.cy),
@@ -332,7 +564,7 @@ def main() -> int:
             frame_ops.project_and_match(
                 *blk, last, sc.fx, sc.fy, sc.cx, sc.cy, lo, hi, f0_uv, f0["desc_bits"],
                 f0["size"], f0["valid"], TRACK_PARAMS["local_radius"],
-                TRACK_PARAMS["match_th"], TRACK_PARAMS["local_ratio"])),
+                TRACK_PARAMS["match_th"], TRACK_PARAMS["local_ratio"], f0_words)),
     }
     for name, fn in stages.items():
         log(f"[stages] {host_ms(fn):8.2f} ms  {name}")
@@ -365,8 +597,6 @@ def main() -> int:
     for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1]):
         log(f"[syncs]   {n:4d}x  {site}")
 
-    from torch.profiler import ProfilerActivity, profile
-
     n_prof = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
@@ -397,16 +627,37 @@ def main() -> int:
     log(f"[flagship] tracking_step on make_example(480, 640): n_inliers {int(n_in)}, "
         f"valid kps {int(feats['valid'].sum())}")
 
-    k2_ms, k2_plain_ms = k2_times[(4096, 1000)]
+    # per tracked frame: K1 over the 8 levels; K2 over the searches frame
+    # 13 ran (events and bounds) and over phase 5's frames (device time);
+    # pack_bits at frame 13's keypoints and over phase 5's frames
+    n_frames = len(rows)
+    frame_k2 = {key: sum(r[key] for r in k2_real[:frame_searches])
+                for key in ("eager_ms", "graph_ms", "plain_ms", "bound_ms")}
+    k2_bound_by = max(k2_real[:frame_searches], key=lambda r: r["bound_ms"])["bound_by"]
     log(json.dumps({"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/fast_nms.cu",
          "replaces": "anyfeature_vslam_tpu/frontend/pallas_fast.py:105",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": k1_launches, "launches_per_frame": k1_launches / n_frames,
+         "max_abs_err": k1_err, "ms": k1_ms, "eager_ms": k1_ms, "graph_ms": k1_graph_ms,
+         "device_ms": dev_frames["fast_nms_kernel"][1] / n_frames, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "best_two", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/best_two.cu",
          "replaces": "anyfeature_vslam_tpu/ops/pallas_match.py:179",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": k2_launches, "launches_per_frame": k2_launches / n_frames,
+         "max_abs_err": k2_err, "ms": frame_k2["eager_ms"], "eager_ms": frame_k2["eager_ms"],
+         "graph_ms": frame_k2["graph_ms"],
+         "device_ms": dev_frames["best_two_bits_kernel"][1] / n_frames,
+         "plain_ms": frame_k2["plain_ms"], "bound_ms": frame_k2["bound_ms"],
+         "bound_by": k2_bound_by, "library_ms": None},
+        {"name": "pack_bits", "route": "cuda",
+         "source": "anyfeature_vslam_tpu_torch/csrc/best_two.cu",
+         "replaces": "anyfeature_vslam_tpu/ops/pallas_match.py:179",
+         "launches": pack_launches, "launches_per_frame": pack_launches / n_frames,
+         "max_abs_err": 0.0, "ms": pack_ms, "eager_ms": pack_ms, "graph_ms": pack_graph_ms,
+         "device_ms": dev_frames["pack_bits_kernel"][1] / n_frames, "plain_ms": pack_plain_ms,
+         "bound_ms": pack_bound_ms, "bound_by": pack_bound_by, "library_ms": None},
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

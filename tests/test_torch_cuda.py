@@ -42,6 +42,50 @@ def test_fast_nms_kernel_is_bit_exact(cuda, hw, kind):
     assert cuda_fast.fast_nms.launches == before + 1
 
 
+def _levels_of(img):
+    from anyfeature_vslam_tpu_torch.frontend import pyramid
+    from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, OrbExtractor
+
+    h, w = img.shape
+    ext = OrbExtractor(ExtractorConfig(n_features=1000), h, w).to(img.device)
+    return [l.contiguous() for l in pyramid.build_pyramid(img, ext.resize_mats())]
+
+
+def _assert_levels_exact(levels):
+    before = cuda_fast.fast_nms.launches
+    got = cuda_fast.fast_nms_levels(levels, 20.0)
+    assert cuda_fast.fast_nms.launches == before + 1
+    for lev, score in zip(levels, got):
+        want = cuda_fast.fast_nms_plain(lev, 20.0)
+        torch.cuda.synchronize()
+        assert score.shape == lev.shape and torch.equal(score, want), tuple(lev.shape)
+
+
+def test_fast_nms_levels_one_launch_on_a_rendered_frame(cuda):
+    from torch_slice_scene import FIRST_TRACKED, SliceScene
+
+    img8 = SliceScene(640, 480).render(FIRST_TRACKED)[0]
+    levels = _levels_of(torch.from_numpy(img8).to(cuda).float())
+    assert [tuple(l.shape) for l in levels][::7] == [(480, 640), (134, 179)]
+    _assert_levels_exact(levels)
+
+
+@pytest.mark.parametrize("shapes", [
+    [(5, 5), (7, 40), (33, 65), (134, 179)],
+    [(1, 1), (61, 33), (2, 300), (97, 97), (31, 31), (32, 32), (3, 3), (7, 7)],
+    [(480, 640)],
+])
+@pytest.mark.parametrize("kind", ["uniform", "levels"])
+def test_fast_nms_levels_odd_tables(cuda, shapes, kind):
+    rng = np.random.default_rng(len(shapes))
+    levels = []
+    for hw in shapes:
+        img = (rng.uniform(0, 255, hw) if kind == "uniform"
+               else rng.integers(0, 6, hw) * 40.0).astype(np.float32)
+        levels.append(torch.from_numpy(img).to(cuda))
+    _assert_levels_exact(levels)
+
+
 def test_fast_nms_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         cuda_fast.fast_nms(torch.zeros((32, 32), dtype=torch.float64, device=cuda), 20.0)
@@ -106,3 +150,59 @@ def test_best_two_kernel_no_candidates_and_bad_input(cuda):
     args = list(_case(cuda, 8, 8, 256, True))
     with pytest.raises(ValueError):
         cuda_match.best_two(args[0].cpu(), *args[1:])
+
+
+@pytest.mark.parametrize("dim", [256, 384, 488, 512])
+@pytest.mark.parametrize("n", [1, 7, 1000])
+def test_pack_bits_ballot_equals_twin(cuda, dim, n):
+    bits = torch.from_numpy(np.random.default_rng(n).integers(0, 2, (n, dim)).astype(np.uint8))
+    before = cuda_match.pack_bits.launches
+    got = cuda_match.pack_bits(bits.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_match.pack_bits_plain(bits))
+    assert cuda_match.pack_bits.launches == before + 1
+
+
+def _assert_packed_exact(args, dim):
+    words = cuda_match.pack_bits(args[1])
+    before = cuda_match.best_two.launches, cuda_match.pack_bits.launches
+    b, i, s = cuda_match.best_two(args[0], words, *args[2:], c_dim=dim)
+    rb, ri, rs = cuda_match.reference_best_two(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(b, rb) and torch.equal(i.long(), ri) and torch.equal(s, rs)
+    # one search launch and no pack: the queries are packed in the kernel
+    assert (cuda_match.best_two.launches, cuda_match.pack_bits.launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("dim", [256, 384, 488, 512])
+@pytest.mark.parametrize("nq,nc", [(1, 1), (300, 257), (1000, 1000), (4096, 1000)])
+def test_best_two_packed_candidates_exact(cuda, dim, nq, nc):
+    _assert_packed_exact(_case(cuda, nq, nc, dim, True), dim)
+
+
+@pytest.mark.parametrize("dim", [256, 488, 512])
+def test_best_two_tiled_candidates_exact(cuda, dim):
+    # more candidates than one block stages whole: the double-buffered tiles
+    _assert_packed_exact(_case(cuda, 700, 5000, dim, True, seed=1), dim)
+
+
+@pytest.mark.parametrize("nq", [1, 528, 529, 1056, 1057, 2112, 2113, 4096, 8200])
+def test_best_two_queries_per_block_boundaries(cuda, nq):
+    # a query's candidates split over 8, 4, 2, 1 warps up to 528, 1056,
+    # 2112 and above 2112 queries (csrc/best_two.cu launch_bits_split)
+    _assert_packed_exact(_case(cuda, nq, 1000, 256, True, seed=2), 256)
+
+
+@pytest.mark.parametrize("nq,nc", [(64, 96), (2048, 3000)])
+def test_best_two_dense_ties_at_radius_inf(cuda, nq, nc):
+    args = list(_case(cuda, nq, nc, 256, True, seed=3))
+    half = nc // 2
+    for k in (1, 3, 7, 8):  # every candidate row twice: exact ties everywhere
+        args[k][half:2 * half] = args[k][:half]
+    args[4] = torch.full_like(args[4], cuda_match.INF)
+    args[5] = torch.zeros_like(args[5])
+    args[6] = torch.full_like(args[6], cuda_match.INF)
+    _assert_packed_exact(args, 256)
+    b, i, s = cuda_match.best_two(*args)
+    assert bool((i < half).all()) and bool((s == b).all())

@@ -56,3 +56,37 @@ def test_wrapper_uses_twin_on_cpu_without_launching():
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         cuda_fast.fast_nms(torch.empty((16, 16), device="meta"), 20.0)
+
+
+@pytest.fixture(scope="module")
+def rendered_levels():
+    """The 8 pyramid levels (port's pyramid) of frame 13 of the rendered
+    benchmark scene at 320x240."""
+    from anyfeature_vslam_tpu_torch.frontend import pyramid
+    from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, OrbExtractor
+    from torch_slice_scene import FIRST_TRACKED, SliceScene
+
+    img8 = SliceScene(320, 240).render(FIRST_TRACKED)[0]
+    ext = OrbExtractor(ExtractorConfig(n_features=500), 240, 320)
+    levels = pyramid.build_pyramid(torch.from_numpy(img8).float(), ext.resize_mats())
+    return [l.contiguous() for l in levels]
+
+
+def test_levels_twin_equals_pallas_on_every_level(rendered_levels):
+    got = cuda_fast.fast_nms_levels(rendered_levels, 20.0)
+    assert len(got) == 8 and cuda_fast.fast_nms.launches == 0
+    for lvl, (lev, score) in enumerate(zip(rendered_levels, got)):
+        want = np.asarray(fast_nms_pallas(jnp.asarray(lev.numpy()), 20.0, interpret=True))
+        assert score.shape == lev.shape
+        np.testing.assert_array_equal(score.numpy(), want, err_msg=f"level {lvl}")
+    assert np.count_nonzero(got[0].numpy()) > 0
+
+
+def test_levels_wrapper_refuses_bad_tables():
+    img = torch.zeros((16, 16))
+    with pytest.raises(ValueError):
+        cuda_fast.fast_nms_levels([], 20.0)
+    with pytest.raises(ValueError):
+        cuda_fast.fast_nms_levels([img] * (cuda_fast.MAX_LEVELS + 1), 20.0)
+    with pytest.raises(ValueError):
+        cuda_fast.fast_nms_levels([img, torch.empty((16, 16), device="meta")], 20.0)

@@ -183,3 +183,47 @@ def test_resolve_unique_and_rotation_consistency_with_ties():
     got = tmatch.rotation_consistency(torch.from_numpy(angle_q), torch.from_numpy(angle_c),
                                       torch.from_numpy(idx).long(), torch.from_numpy(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dim", [256, 384, 488, 512])
+def test_pack_bits_twin_is_little_endian_words(dim):
+    bits = np.random.default_rng(dim).integers(0, 2, (37, dim)).astype(np.uint8)
+    nwords = (dim + 31) // 32
+    padded = np.zeros((37, nwords * 32), np.uint8)
+    padded[:, :dim] = bits
+    want = np.packbits(padded, axis=1, bitorder="little").view("<u4")
+    got = cuda_match.pack_bits(torch.from_numpy(bits))
+    assert got.dtype == torch.int32 and got.shape == (37, nwords)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    if dim == 488:  # 15.25 words: the last word holds 8 bits, the tail is zero
+        assert (got.numpy().view(np.uint32)[:, -1] >> 8 == 0).all()
+    np.testing.assert_array_equal(cuda_match.unpack_bits_plain(got, dim).numpy(), bits)
+    assert cuda_match.pack_bits.launches == 0
+
+
+@pytest.mark.parametrize("dim", [256, 384, 488, 512])
+def test_best_two_with_packed_candidates_is_exact(dim):
+    args = _case(np.random.default_rng(dim), 120, 333, True, dim=dim)
+    c = args[1]
+    c[200:] = c[:133]                     # duplicated rows: exact ties
+    targs = list(map(torch.from_numpy, args))
+    words = cuda_match.pack_bits(targs[1])
+    packed = cuda_match.best_two(targs[0], words, *targs[2:], c_dim=dim)
+    plain = cuda_match.best_two(*targs)
+    for x, y in zip(packed, plain):
+        assert torch.equal(x, y)
+    _assert_same([t.numpy() for t in packed], _jax(args), True)
+    assert cuda_match.best_two.launches == 0
+
+
+def test_guided_best_two_takes_words_in_place_of_candidates():
+    args = list(map(torch.from_numpy, _case(np.random.default_rng(8), 60, 90, True)))
+    words = cuda_match.pack_bits(args[1])
+    got = tmatch.guided_best_two(*args, c_words=words)
+    want = tmatch.guided_best_two(*args)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):      # packed words of another width
+        cuda_match.best_two(args[0], words, *args[2:], c_dim=384)
+    with pytest.raises(ValueError):      # bit planes where words are expected
+        cuda_match.best_two(args[0], args[1], *args[2:], c_dim=256)

@@ -194,3 +194,47 @@ def test_flagship_tracking_step_matches_jax():
     valid_t, valid_j = tf["valid"].numpy(), np.asarray(jf["valid"])
     assert abs(int(valid_t.sum()) - int(valid_j.sum())) <= 0.01 * valid_j.sum()
     assert cuda_fast.fast_nms.launches == 0 and cuda_match.best_two.launches == 0
+
+
+def test_searches_on_once_packed_words_equal_unpacked(slice_case, monkeypatch):
+    """fused_track_step packs the frame's descriptors once; the motion
+    search, its retry and the local-map search on those words give exactly
+    what each search gives when it packs its own candidates."""
+    sc, f = slice_case["sc"], slice_case["feats13"]
+    state = convert.track_state_from_numpy(slice_case["carry"], slice_case["ref"],
+                                           slice_case["block"], "cpu")
+    cur = [torch.from_numpy(f[k]) for k in ("uv_und", "desc_bits", "size", "angle", "valid")]
+    f_uv, f_bits, f_size, f_angle, f_valid = cur
+    words = cuda_match.pack_bits(f_bits)
+    last = torch.from_numpy(sc.poses[FIRST_TRACKED - 1])
+    lo, hi = (torch.from_numpy(b) for b in sc.bounds)
+    blk = [state[k] for k in convert.BLOCK_KEYS[1:]]
+    p = TRACK_PARAMS
+    local = [*blk, last, sc.fx, sc.fy, sc.cx, sc.cy, lo, hi, f_uv, f_bits, f_size, f_valid,
+             p["local_radius"], p["match_th"], p["local_ratio"]]
+    has_pt = state["last_match_pt"] >= 0
+    uv_proj = state["last_uv"]  # the last frame's keypoints as their own projections
+    motion = [state["last_uv"], state["last_bits"], state["last_size"], has_pt, uv_proj,
+              has_pt, f_uv, f_bits, f_size, f_valid, state["last_angle"], f_angle,
+              p["motion_radius"], p["match_th"], p["min_motion_matches"]]
+    for fn, args in ((ttrack.frame_ops.project_and_match, local),
+                     (ttrack.frame_ops.match_frame_to_frame_2r, motion)):
+        got, want = fn(*args, f_words=words), fn(*args)
+        assert set(got) == set(want) and int(want["valid"].sum()) > 0
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fn.__name__, k)
+
+    packed = []
+    pack = cuda_match.pack_bits
+    monkeypatch.setattr(cuda_match, "pack_bits", lambda bits: packed.append(bits) or pack(bits))
+    pred = ttrack.predict_pose(last, torch.from_numpy(sc.poses[FIRST_TRACKED - 2]))
+    out = ttrack.fused_track_step(*cur, torch.from_numpy(f["inv_sigma2"]), **state,
+                                  **_torch_tail(sc, pred, last))
+    assert bool(out[4]) and bool(out[5])  # tracked by the motion model
+    assert len(packed) == 1 and packed[0] is f_bits
+
+
+def test_flagship_entry_runs_on_the_card_by_default():
+    import inspect
+
+    assert inspect.signature(tflag.entry).parameters["device"].default == "cuda"
