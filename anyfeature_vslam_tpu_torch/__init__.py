@@ -6,6 +6,10 @@ mirrors its module paths (``anyfeature_vslam_tpu/ops/matching.py`` ->
 at every public function. It imports torch and numpy only: never jax, and
 nothing of the JAX package (whose ``__init__`` imports jax).
 
+Entry points: ``system.System`` (the synchronous monocular orb32 SLAM
+system), ``system.run_sequence`` and the ``run_mono`` CLI; they run on the
+card unless the caller passes ``device="cpu"``.
+
 Plain tensor code is PyTorch. The two Pallas TPU kernels of the JAX
 package are hand-written CUDA C++ for Hopper under ``csrc/``, built with
 nvcc at first use (``cuda_build.py``):

@@ -35,6 +35,26 @@ class CameraParams(NamedTuple):
         return CameraParams(f(fx), f(fy), f(cx), f(cy), f(k1), f(k2), f(p1),
                             f(p2), f(k3), int(width), int(height))
 
+    @property
+    def k_matrix(self):
+        """(3, 3) float32 intrinsic matrix on the parameters' device."""
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        return torch.stack([
+            torch.stack([self.fx, z, self.cx]),
+            torch.stack([z, self.fy, self.cy]),
+            torch.stack([z, z, o]),
+        ])
+
+
+def project(cam: CameraParams, pts_cam):
+    """Camera-frame points (..., 3) -> undistorted pixel coords (..., 2)
+    and depth (...)."""
+    z = pts_cam[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    xn = pts_cam[..., :2] * inv_z[..., None]
+    return torch.stack([cam.fx * xn[..., 0] + cam.cx, cam.fy * xn[..., 1] + cam.cy], -1), z
+
 
 def undistort_points(cam: CameraParams, uv, num_iters: int = 10):
     """Undistort pixel keypoints (..., 2) -> ideal pixel coords, with the

@@ -108,6 +108,15 @@ def finish_match(best, best_idx, second, n_cand: int, match_th, ratio=None,
     return dict(idx=idx, dist=best, valid=valid)
 
 
+def match(dist, mask, match_th, ratio=None, unique: bool = True):
+    """Generic matcher on a dense (N, M) distance matrix and candidate
+    mask: threshold, optional ratio test, one query per candidate (the
+    JAX ``match`` without its rotation filter, which no ported caller
+    uses). Returns dict(idx, dist, valid)."""
+    return finish_match(*best_two(dist, mask), dist.shape[1], match_th, ratio=ratio,
+                        unique=unique)
+
+
 def guided_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid,
                     c_words=None):
     """Masked best/second-best search: kernel K2 for CUDA tensors (every

@@ -4,8 +4,9 @@ Conventions as in the JAX package: poses are (..., 4, 4) ``T = [[R, t],
 [0, 1]]``; tangent vectors are (..., 6) ``xi = (rho, phi)``, translation
 first; updates are left-multiplicative ``T <- exp(xi) @ T``. Small-angle
 branches use Taylor series selected with ``torch.where`` so nothing is NaN
-at theta = 0. Only what the tracked frame needs is ported: pose LM and the
-motion prediction.
+at theta = 0. Only what the synchronous System needs is ported: the pose
+LM, BA and motion prediction, and ``rot_to_quat`` for the trajectory
+writers.
 """
 
 from __future__ import annotations
@@ -81,3 +82,34 @@ def se3_inverse(t_mat):
     t = t_mat[..., :3, 3]
     rt = r.transpose(-1, -2)
     return rt_to_mat(rt, -(rt @ t[..., None])[..., 0])
+
+
+def rot_to_quat(r):
+    """(..., 3, 3) -> (..., 4) quaternion (x, y, z, w), w >= 0: Shepperd's
+    method, all four candidates computed and the one keyed by the largest
+    diagonal combination selected."""
+    m00, m01, m02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    m10, m11, m12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+    m20, m21, m22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def build(tw, tx, ty, tz):
+        return torch.stack([tx, ty, tz, tw], dim=-1)
+
+    def scale(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+    s0 = scale(1.0 + tr)
+    q0 = build(0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0)
+    s1 = scale(1.0 + m00 - m11 - m22)
+    q1 = build((m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1)
+    s2 = scale(1.0 - m00 + m11 - m22)
+    q2 = build((m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2)
+    s3 = scale(1.0 - m00 - m11 + m22)
+    q3 = build((m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3)
+    cond0 = (tr > 0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    q = q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)

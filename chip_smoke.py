@@ -21,18 +21,32 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
      truth (see BOUNDED_FRAMES), and the launch counters must show one K1
      launch per frame, one K2 launch per search and one pack per
      candidate set; then
-     5b. the kernels' device time (torch.profiler) over the same frames;
+     5b. the kernels' device time (torch.profiler) over the same frames,
+         every launch the wrappers counted found among the profiler's
+         kernel events (else profiled again, and failing after 5);
      5c. K2 and pack_bits at the recorded inputs of one frame's searches:
          exact, with device, eager (events around calls, host issue
          included) and CUDA-graph replay times beside the plain twin and
          the bound;
   6. where a frame's time goes: the frame and its stages run alone, host
      syncs attributed to source lines, a torch.profiler summary;
-  7. flagship.tracking_step once on make_example(480, 640).
+  7. flagship.tracking_step once on make_example(480, 640);
+  8. the System (system.py, synchronous, 640x480, orb32, 1000 features)
+     over the first 48 frames of the benchmark sequence: two-view
+     initialization, tracked frames, keyframe events (triangulation,
+     fusion, local BA, culling). It must not reset, track >= 45 frames,
+     reach a Sim3-aligned keyframe and frame ATE < 5 cm, launch K1 on every
+     frame and K2 from the init, tracking and fusion searches; K2 is held
+     exact against its twin at the recorded inputs of the init search and
+     of one fusion search; host syncs are counted over a fresh System's
+     first 16 frames.
 
-Prints the card (nvidia-smi name, power limit) first, then per-phase lines,
-one JSON line of kernel results (per tracked frame: launches, device time,
-eager and graph times, plain twin, bound), and as the last line
+The launch counters are set to 0 before phases 5 and 8 and read after
+each. Prints the card (nvidia-smi name, power limit) first, then
+per-phase lines, one JSON line of kernel results ("launches": phase 8;
+per tracked frame of phase 5: launches, device time, eager and graph
+times, plain twin, bound; K2 at phase 8's init and fusion inputs), and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is present.
@@ -66,6 +80,12 @@ BOUNDED_FRAMES = 10
 
 def log(msg):
     print(msg, flush=True)
+
+
+def assert_no_jax():
+    """The port must import neither jax nor the JAX package."""
+    if "jax" in sys.modules or any(m.startswith("anyfeature_vslam_tpu.") for m in sys.modules):
+        raise RuntimeError("the port must not import jax or the JAX package")
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -139,6 +159,40 @@ def device_ms_by_kernel(torch, prof):
     return out
 
 
+PROFILE_ATTEMPTS = 5
+
+
+def profile_kernels(torch, fn):
+    """{kernel substring: (events, total device ms)} of fn()'s kernels from
+    torch.profiler events. Each kernel's events must equal the launches its
+    wrapper counted while fn() ran: a profile that missed a launch is taken
+    again, and after PROFILE_ATTEMPTS such profiles this raises rather than
+    report a device time that was not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from anyfeature_vslam_tpu_torch.frontend import cuda_fast
+    from anyfeature_vslam_tpu_torch.ops import cuda_match
+
+    wrappers = dict(zip(PROFILED_KERNELS,
+                        (cuda_fast.fast_nms, cuda_match.pack_bits, cuda_match.best_two)))
+    for attempt in range(PROFILE_ATTEMPTS):
+        n0 = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dk = device_ms_by_kernel(torch, prof)
+        del prof
+        missed = {k: (dk[k][0], w.launches - n0[k]) for k, w in wrappers.items()
+                  if dk[k][0] != w.launches - n0[k]}
+        if not missed:
+            return dk
+        log(f"[device] profile {attempt + 1}: kernel events != counted launches "
+            f"{missed}; profiling again")
+    raise AssertionError(f"torch.profiler missed kernel launches in {PROFILE_ATTEMPTS} "
+                         f"profiles: {missed}")
+
+
 def k1_work(torch, levels, threshold):
     """Bytes, operations and live pixels of K1 on these levels: each pixel
     read and written once; 35 operations per pixel (16 ring differences, 8
@@ -185,6 +239,84 @@ def k2_work(args, packed_candidates):
     return nbytes, 8 * nq * nc + 2 * nwords * passes, passes
 
 
+def measure_k2(torch, a, kw, label):
+    """K2 at one search's recorded inputs (the arguments of
+    matching.guided_best_two): exact against the plain version, then
+    eager, CUDA-graph, plain, profiled device time and the bound."""
+    from anyfeature_vslam_tpu_torch.ops import cuda_match, matching
+
+    guided = matching.guided_best_two
+    b, i, s = guided(*a, **kw)
+    rb, ri, rs = cuda_match.reference_best_two(*a)
+    torch.cuda.synchronize()
+    if not (torch.equal(b, rb) and torch.equal(i.long(), ri) and torch.equal(s, rs)):
+        raise AssertionError(f"K2 at the {label} search: differs from the plain version")
+    err = max(float((b - rb).abs().max()), float((s - rs).abs().max()))
+    e_ms = time_ms(torch, lambda: guided(*a, **kw))
+    g_ms = graph_ms(torch, lambda: guided(*a, **kw))
+    p_ms = time_ms(torch, lambda: cuda_match.reference_best_two(*a))
+    nbytes, nops, passes = k2_work(a, kw.get("c_words") is not None)
+    b_ms, b_by = bound(nbytes, nops)
+    # device time per call: every launch of 20 calls, profiled
+    reps = 20
+
+    def calls():
+        for _ in range(reps):
+            guided(*a, **kw)
+
+    dk = profile_kernels(torch, calls)
+    n_match = dk["best_two_bits_kernel"][0] / reps
+    n_pack = dk["pack_bits_kernel"][0] / reps
+    if n_match < 1:
+        raise AssertionError(f"K2 at the {label} search: no search kernel was launched")
+    d_ms = dk["best_two_bits_kernel"][1] / reps
+    d_pack_ms = dk["pack_bits_kernel"][1] / reps
+    nq, nc = a[0].shape[0], a[1].shape[0]
+    log(f"[K2 real] {label} {nq}x{nc}: exact ({int((i >= 0).sum())} matched, {passes} pairs "
+        f"pass the gates, {100 * passes / (nq * nc):.3f}%); {n_match:g} search + {n_pack:g} "
+        f"pack launches; device search {d_ms:.5f} ms + pack {d_pack_ms:.5f} ms; eager "
+        f"{e_ms:.4f} ms, graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(label=label, nq=nq, nc=nc, passes=passes, max_abs_err=err, eager_ms=e_ms,
+                graph_ms=g_ms, plain_ms=p_ms, device_ms=d_ms, pack_device_ms=d_pack_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+class sync_counter:
+    """Count host syncs by source line in the port's package while active
+    (torch.cuda.set_sync_debug_mode("warn")): sites[site] += 1."""
+
+    def __init__(self, torch, sites):
+        self.torch, self.sites = torch, sites
+        self.pkg = os.path.join(ROOT, "anyfeature_vslam_tpu_torch")
+
+    def _on_warning(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        # the innermost caller in the port's package names the sync site
+        site = "?"
+        for fr in traceback.extract_stack()[:-1]:
+            if fr.filename.startswith(self.pkg):
+                site = f"{os.path.relpath(fr.filename, ROOT)}:{fr.lineno} {fr.line}"
+        self.sites[site] = self.sites.get(site, 0) + 1
+
+    def __enter__(self):
+        import warnings
+
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._on_warning
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+        return False
+
+
 def track_frames(torch, sc, cam, ext, state, frames, device):
     """Run fused_extract_track over `frames` (pre-rendered uint8 images of
     frames FIRST_TRACKED..), chaining the carry and the pose prediction as
@@ -221,6 +353,243 @@ def track_frames(torch, sc, cam, ext, state, frames, device):
     return out_rows
 
 
+N_SYSTEM_FRAMES = 48
+N_SYNC_FRAMES = 16
+RECORDED_EVENT = 10  # the keyframe event whose fusion searches are recorded
+MIN_SYSTEM_TRACKED = 45
+MAX_ATE_M = 0.05
+
+
+def system_run(torch, width, height, n_frames, device, record=None, sync_sites=None):
+    """The port's System over the first n_frames of the bench sequence
+    (rendered in memory), orb32, 1000 features, synchronous. Returns
+    (system, per-frame rows, per-event rows, scene, K2 launches by search):
+    per frame ms, K1 / K2 / pack launches and keyframe events; per event
+    ms, K2 / pack launches; the K2 launches of the "init", "tracking" and
+    "fusion" searches. With `record` (a dict), the inputs of every init
+    search and of the fusion searches of event RECORDED_EVENT are kept
+    there by label. With `sync_sites`, the host syncs
+    counted into it are attributed to frames and events."""
+    from anyfeature_vslam_tpu_torch.frontend import cuda_fast
+    from anyfeature_vslam_tpu_torch.ops import cuda_match, matching
+    from anyfeature_vslam_tpu_torch.slam import frame_ops
+    from anyfeature_vslam_tpu_torch.system import System
+    from torch_slice_scene import SliceScene
+
+    sc = SliceScene(width, height)
+    frames = [sc.render(i)[0] for i in range(n_frames)]
+    system = System(SimpleNamespace(**sc.camera), feature="orb32", n_features=N_FEATURES,
+                    device=device)
+    counters = (cuda_fast.fast_nms, cuda_match.best_two, cuda_match.pack_bits)
+    label = ["tracking"]
+    events = []
+    patched = []
+
+    def patch(mod, name, wrapper):
+        patched.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, wrapper(getattr(mod, name)))
+
+    def labelled(tag):
+        def wrap(fn):
+            def inner(*a, **kw):
+                prev, label[0] = label[0], tag
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    label[0] = prev
+            return inner
+        return wrap
+
+    k2_by_label = {}
+
+    def recorder(fn):
+        def inner(*a, **kw):
+            # every init search, and the fusion searches of one event
+            if record is not None and (label[0] == "init" or (
+                    label[0] == "fusion" and len(events) == RECORDED_EVENT)):
+                record.setdefault(label[0], []).append((a, kw))
+            n0 = counters[1].launches
+            out = fn(*a, **kw)
+            k2_by_label[label[0]] = k2_by_label.get(label[0], 0) + counters[1].launches - n0
+            return out
+        return inner
+
+    def event_wrap(fn):
+        def inner(kf):
+            n0 = [c.launches for c in counters]
+            sites0 = sum(sync_sites.values()) if sync_sites is not None else 0
+            t0 = time.perf_counter()
+            fn(kf)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            events.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                               k2=counters[1].launches - n0[1], pack=counters[2].launches - n0[2],
+                               syncs=(sum(sync_sites.values()) - sites0)
+                               if sync_sites is not None else None))
+        return inner
+
+    patch(frame_ops, "match_for_initialization", labelled("init"))
+    patch(frame_ops, "fuse_points_into_targets", labelled("fusion"))
+    patch(frame_ops, "fuse_target_points_into_kf", labelled("fusion"))
+    patch(matching, "guided_best_two", recorder)
+    system.tracker.on_new_keyframe = event_wrap(system.tracker.on_new_keyframe)
+    rows = []
+    try:
+        for i, img8 in enumerate(frames):
+            n0 = [c.launches for c in counters]
+            ev0 = len(events)
+            sites0 = sum(sync_sites.values()) if sync_sites is not None else 0
+            t0 = time.perf_counter()
+            state = system.track_monocular(img8, i / 30.0)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            rows.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, state=state.name,
+                k1=counters[0].launches - n0[0], k2=counters[1].launches - n0[1],
+                pack=counters[2].launches - n0[2], events=len(events) - ev0,
+                kfs=system.map.n_keyframes(), pts=system.map.n_points(),
+                inliers=system.tracker.n_inliers,
+                syncs=(sum(sync_sites.values()) - sites0) if sync_sites is not None else None))
+    finally:
+        for mod, name, fn in reversed(patched):
+            setattr(mod, name, fn)
+    return system, rows, events, sc, k2_by_label
+
+
+def ate(system, sc):
+    """(keyframe ATE, frame ATE, n keyframes, n frames): Sim3-aligned RMSE of
+    the camera centres against the rendered ground truth (the port's
+    io/evaluation copy of the JAX package's scorer)."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.io import evaluation
+
+    def centre(t):
+        return -t[:3, :3].T @ t[:3, 3]
+
+    m = system.map
+    kfs = m.keyframe_ids()
+    est = [centre(m.kf_pose[k].astype(np.float64)) for k in kfs]
+    gt = [centre(sc.poses[int(m.kf_frame_id[k])]) for k in kfs]
+    kf_ate = evaluation.ate_rmse(np.asarray(est), np.asarray(gt))[0]
+    est, gt = [], []
+    for ts, t_cr, uid, lost in system.tracker.trajectory:
+        t_cw = m.resolve_anchor(t_cr, uid)
+        if lost or t_cw is None:
+            continue
+        est.append(centre(t_cw.astype(np.float64)))
+        gt.append(centre(sc.poses[int(round(ts * 30.0))]))
+    fr_ate = evaluation.ate_rmse(np.asarray(est), np.asarray(gt))[0]
+    return kf_ate, fr_ate, len(kfs), len(est)
+
+
+def system_phase(torch, device):
+    """Phase 8: the System over the first N_SYSTEM_FRAMES frames at
+    640x480, with its checks. Returns (launches K1, K2, pack; K2 launches
+    by search; K2 measured at the init and fusion inputs)."""
+    from anyfeature_vslam_tpu_torch import perfcount
+    from anyfeature_vslam_tpu_torch.frontend import cuda_fast
+    from anyfeature_vslam_tpu_torch.ops import cuda_match
+
+    counters = (cuda_fast.fast_nms, cuda_match.best_two, cuda_match.pack_bits)
+    recorded = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    perfcount.reset()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    system, srows, sevents, ssc, k2_by = system_run(torch, W, H, N_SYSTEM_FRAMES, device,
+                                                    record=recorded)
+    sys_wall = time.perf_counter() - t0
+    sys_k1, sys_k2, sys_pack = (c.launches for c in counters)
+    for i, r in enumerate(srows):
+        log(f"[system] frame {i}: {r['state']} kfs {r['kfs']} pts {r['pts']} inliers "
+            f"{r['inliers']} {r['ms']:.1f} ms, events {r['events']}, launches K1 {r['k1']} "
+            f"K2 {r['k2']} pack {r['pack']}")
+    stats = system.tracker.stats
+    ok_frames = [i for i, r in enumerate(srows) if r["state"] == "OK"]
+    init_frame = ok_frames[0] if ok_frames else -1
+    kf_ate, fr_ate, n_kf_ate, n_fr_ate = ate(system, ssc)
+    steady = srows[init_frame + 2:] if init_frame >= 0 else []
+    kf_frames = [r["ms"] for r in steady if r["events"]]
+    plain_frames = [r["ms"] for r in steady if not r["events"]]
+    ev_k2 = sum(e["k2"] for e in sevents)
+    n_init_k2, n_fuse_k2, n_track_k2 = (k2_by.get(k, 0) for k in ("init", "fusion", "tracking"))
+    log(f"[system] {N_SYSTEM_FRAMES} frames {W}x{H} orb32 {N_FEATURES} features in "
+        f"{sys_wall:.1f} s; init at frame {init_frame} with {srows[init_frame]['kfs']} "
+        f"keyframes and {srows[init_frame]['pts']} points; at the end "
+        f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points")
+    log(f"[system] tracked {stats['tracked_frames']}, lost {stats['lost_frames']}, resets "
+        f"{stats['resets']}; ATE (Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf_ate}, "
+        f"frames {fr_ate:.5f} m over {n_fr_ate}")
+    if not sevents:
+        raise AssertionError("the System phase ran no keyframe event")
+    log(f"[system] median ms per frame after init+1: without a keyframe event "
+        f"{statistics.median(plain_frames) if plain_frames else float('nan'):.1f} "
+        f"({len(plain_frames)} frames), with one "
+        f"{statistics.median(kf_frames) if kf_frames else float('nan'):.1f} "
+        f"({len(kf_frames)} frames); {len(sevents)} keyframe events, median "
+        f"{statistics.median(e['ms'] for e in sevents):.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for name, ts in system.local_mapper.stage_times.items():
+        log(f"[system] event stage {name}: median {1e3 * statistics.median(ts):.1f} ms, "
+            f"max {1e3 * max(ts):.1f} ms over {len(ts)} events")
+    by_caps = {}
+    for b in system.local_mapper.ba_log:
+        key = (b["k_cap"], b["p_cap"], b["o_cap"], "dense" if b["dense"] else "CG")
+        by_caps.setdefault(key, []).append(b["ms"])
+    for (k, p, o, path), ms in sorted(by_caps.items()):
+        log(f"[system] local BA caps k {k} p {p} o {o} ({path}): {len(ms)} solves, median "
+            f"{statistics.median(ms):.1f} ms, max {max(ms):.1f} ms")
+    log(f"[system] map counters: {json.dumps(perfcount.snapshot())}")
+    log(f"[system] launches: K1 {sys_k1} ({sys_k1 / len(srows):.2f} per frame, min "
+        f"{min(r['k1'] for r in srows)}), K2 {sys_k2} (init search {n_init_k2}, tracking "
+        f"{n_track_k2}, {n_track_k2 / max(len(ok_frames) - 1, 1):.2f} per tracked frame; "
+        f"fusion {n_fuse_k2}, {n_fuse_k2 / max(len(sevents), 1):.1f} per event), pack "
+        f"{sys_pack} ({sum(e['pack'] for e in sevents)} in events)")
+    sys_fail = []
+    if stats["resets"] != 0:
+        sys_fail.append(f"{stats['resets']} resets")
+    if stats["tracked_frames"] < MIN_SYSTEM_TRACKED:
+        sys_fail.append(f"{stats['tracked_frames']} tracked frames")
+    if not (kf_ate < MAX_ATE_M and fr_ate < MAX_ATE_M):
+        sys_fail.append(f"ATE {kf_ate:.4f} / {fr_ate:.4f} m")
+    if min(r["k1"] for r in srows) < 1:
+        sys_fail.append("a frame without a K1 launch")
+    if sys_pack < 1:
+        sys_fail.append("no pack_bits launch")
+    if not (n_init_k2 > 0 and n_fuse_k2 > 0 and n_track_k2 > 0
+            and n_init_k2 + n_fuse_k2 + n_track_k2 == sys_k2 and ev_k2 == n_fuse_k2):
+        sys_fail.append("K2 not launched by each of the init, tracking and fusion searches")
+    if sys_fail:
+        raise AssertionError(f"the System phase failed: {sys_fail}")
+    k2_sys = {}
+    for label in ("init", "fusion"):
+        if label not in recorded:
+            raise AssertionError(f"no {label} search was recorded")
+        # the successful init search (the last), the fusion search of event
+        # RECORDED_EVENT with the most active queries
+        calls = recorded[label]
+        a, kw = calls[-1] if label == "init" else max(
+            calls, key=lambda c: int((c[0][4] >= 0).sum()))
+        k2_sys[label] = measure_k2(
+            torch, a, kw, f"System {label} search ({int((a[4] >= 0).sum())} active queries)")
+    # host syncs: a fresh System over the first frames, syncs counted
+    sync_sites = {}
+    with sync_counter(torch, sync_sites):
+        _, crows, cevents, _, _ = system_run(torch, W, H, N_SYNC_FRAMES, device,
+                                             sync_sites=sync_sites)
+    tracked_syncs = [r["syncs"] for r in crows if r["state"] == "OK" and not r["events"]]
+    log(f"[system syncs] first {N_SYNC_FRAMES} frames: {sum(sync_sites.values())} host syncs; "
+        f"per keyframe event {[e['syncs'] for e in cevents]}; per frame without an event "
+        f"{tracked_syncs}")
+    for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"[system syncs]   {n:5d}x  {site}")
+    return ((sys_k1, sys_k2, sys_pack),
+            dict(init=n_init_k2, tracking=n_track_k2, fusion=n_fuse_k2), k2_sys)
+
+
 def main() -> int:
     import torch
 
@@ -240,8 +609,7 @@ def main() -> int:
     from anyfeature_vslam_tpu_torch.ops import cuda_match
     from torch_slice_scene import FIRST_TRACKED, SliceScene, pose_error
 
-    if "jax" in sys.modules or any(m.startswith("anyfeature_vslam_tpu.") for m in sys.modules):
-        raise RuntimeError("the port must not import jax or the JAX package")
+    assert_no_jax()
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -436,10 +804,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        track_frames(torch, sc, cam, ext, state, frames, device)
-    dev_frames = device_ms_by_kernel(torch, prof)
-    del prof
+    dev_frames = profile_kernels(
+        torch, lambda: track_frames(torch, sc, cam, ext, state, frames, device))
     log(f"[device] torch.profiler kernel events over the {len(frames)} frames of phase 5 "
         f"({time.perf_counter() - t0:.1f} s, parsing included):")
     for k, (n, t) in dev_frames.items():
@@ -480,40 +846,9 @@ def main() -> int:
     frame_searches = n_motion  # the searches the frame ran
     k2_real = []
     for label, (a, kw) in real:
-        b, i, s = guided(*a, **kw)
-        rb, ri, rs = cuda_match.reference_best_two(*a)
-        torch.cuda.synchronize()
-        if not (torch.equal(b, rb) and torch.equal(i.long(), ri) and torch.equal(s, rs)):
-            raise AssertionError(f"K2 at the {label} search of frame {FIRST_TRACKED}: "
-                                 f"differs from the plain version")
-        k2_err = max(k2_err, float((b - rb).abs().max()), float((s - rs).abs().max()))
-        e_ms = time_ms(torch, lambda: guided(*a, **kw))
-        g_ms = graph_ms(torch, lambda: guided(*a, **kw))
-        p_ms = time_ms(torch, lambda: cuda_match.reference_best_two(*a))
-        nbytes, nops, passes = k2_work(a, "c_words" in kw)
-        b_ms, b_by = bound(nbytes, nops)
-        # device time: the mean of the kernels' profiler events (a short
-        # profile can miss its first events), times the launches per call
-        # that the wrappers count
-        n0, p0 = cuda_match.best_two.launches, cuda_match.pack_bits.launches
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-            for _ in range(20):
-                guided(*a, **kw)
-            torch.cuda.synchronize()
-        n_match = (cuda_match.best_two.launches - n0) / 20
-        n_pack = (cuda_match.pack_bits.launches - p0) / 20
-        dk = device_ms_by_kernel(torch, prof)
-        d_ms = n_match * dk["best_two_bits_kernel"][1] / max(dk["best_two_bits_kernel"][0], 1)
-        d_pack_ms = n_pack * dk["pack_bits_kernel"][1] / max(dk["pack_bits_kernel"][0], 1)
-        k2_real.append(dict(label=label, nq=a[0].shape[0], nc=a[1].shape[0], passes=passes,
-                            eager_ms=e_ms, graph_ms=g_ms, plain_ms=p_ms, device_ms=d_ms,
-                            pack_device_ms=d_pack_ms, bound_ms=b_ms, bound_by=b_by))
-        log(f"[K2 real] frame {FIRST_TRACKED} {label} {a[0].shape[0]}x{a[1].shape[0]}: exact "
-            f"({int((i >= 0).sum())} matched, {passes} pairs pass the gates, "
-            f"{100 * passes / (a[0].shape[0] * a[1].shape[0]):.3f}%); {n_match:g} search + "
-            f"{n_pack:g} pack launches; device search {d_ms:.5f} ms + pack {d_pack_ms:.5f} ms; "
-            f"eager {e_ms:.4f} ms, graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
+        row = measure_k2(torch, a, kw, f"frame {FIRST_TRACKED} {label}")
+        k2_err = max(k2_err, row["max_abs_err"])
+        k2_real.append(row)
 
     # pack_bits at the frame's keypoints, the candidates of its searches
     f_bits = searches[0][0][1]
@@ -531,9 +866,6 @@ def main() -> int:
         f"bound {pack_bound_ms:.5f} ms ({pack_bound_by})")
 
     # ---- 6. where a tracked frame's time goes, and its host syncs
-    import traceback
-    import warnings
-
     from anyfeature_vslam_tpu_torch.ops import pose_opt
     from anyfeature_vslam_tpu_torch.slam import frame_ops
 
@@ -571,28 +903,10 @@ def main() -> int:
 
     torch.cuda.synchronize()
     sync_sites = {}
-    pkg = os.path.join(ROOT, "anyfeature_vslam_tpu_torch")
-
-    def on_warning(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing CUDA operation" not in str(message):
-            return
-        # the innermost caller in the port's package names the sync site
-        site = "?"
-        for fr in traceback.extract_stack()[:-1]:
-            if fr.filename.startswith(pkg):
-                site = f"{os.path.relpath(fr.filename, ROOT)}:{fr.lineno} {fr.line}"
-        sync_sites[site] = sync_sites.get(site, 0) + 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fast_track.fused_extract_track(
-                img_dev, cam, ext, **state, pred_pose=pred, last_pose=last, use_motion=True,
-                bounds_lo=lo, bounds_hi=hi, fx=sc.fx, fy=sc.fy, cx=sc.cx, cy=sc.cy, **TRACK_PARAMS)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    with sync_counter(torch, sync_sites):
+        fast_track.fused_extract_track(
+            img_dev, cam, ext, **state, pred_pose=pred, last_pose=last, use_motion=True,
+            bounds_lo=lo, bounds_hi=hi, fx=sc.fx, fy=sc.fy, cx=sc.cx, cy=sc.cy, **TRACK_PARAMS)
     log(f"[syncs] host syncs inside one fused_extract_track: {sum(sync_sites.values())}")
     for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1]):
         log(f"[syncs]   {n:4d}x  {site}")
@@ -627,6 +941,11 @@ def main() -> int:
     log(f"[flagship] tracking_step on make_example(480, 640): n_inliers {int(n_in)}, "
         f"valid kps {int(feats['valid'].sum())}")
 
+    # ---- 8. the System: two-view init, tracked frames, keyframe events
+    (sys_k1, sys_k2, sys_pack), k2_by, k2_sys = system_phase(torch, device)
+    k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_sys.values()])
+    assert_no_jax()  # the System's modules are imported by now
+
     # per tracked frame: K1 over the 8 levels; K2 over the searches frame
     # 13 ran (events and bounds) and over phase 5's frames (device time);
     # pack_bits at frame 13's keypoints and over phase 5's frames
@@ -638,23 +957,27 @@ def main() -> int:
         {"name": "fast_nms", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/fast_nms.cu",
          "replaces": "anyfeature_vslam_tpu/frontend/pallas_fast.py:105",
-         "launches": k1_launches, "launches_per_frame": k1_launches / n_frames,
+         "launches": sys_k1, "launches_per_frame_system": sys_k1 / N_SYSTEM_FRAMES,
+         "launches_tracked_frame": k1_launches, "launches_per_frame": k1_launches / n_frames,
          "max_abs_err": k1_err, "ms": k1_ms, "eager_ms": k1_ms, "graph_ms": k1_graph_ms,
          "device_ms": dev_frames["fast_nms_kernel"][1] / n_frames, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "best_two", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/best_two.cu",
          "replaces": "anyfeature_vslam_tpu/ops/pallas_match.py:179",
-         "launches": k2_launches, "launches_per_frame": k2_launches / n_frames,
+         "launches": sys_k2, "launches_system_by_search": k2_by,
+         "launches_tracked_frame": k2_launches, "launches_per_frame": k2_launches / n_frames,
          "max_abs_err": k2_err, "ms": frame_k2["eager_ms"], "eager_ms": frame_k2["eager_ms"],
          "graph_ms": frame_k2["graph_ms"],
          "device_ms": dev_frames["best_two_bits_kernel"][1] / n_frames,
          "plain_ms": frame_k2["plain_ms"], "bound_ms": frame_k2["bound_ms"],
-         "bound_by": k2_bound_by, "library_ms": None},
+         "bound_by": k2_bound_by, "library_ms": None,
+         "init_search": k2_sys["init"], "fusion_search": k2_sys["fusion"]},
         {"name": "pack_bits", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/best_two.cu",
          "replaces": "anyfeature_vslam_tpu/ops/pallas_match.py:179",
-         "launches": pack_launches, "launches_per_frame": pack_launches / n_frames,
+         "launches": sys_pack, "launches_tracked_frame": pack_launches,
+         "launches_per_frame": pack_launches / n_frames,
          "max_abs_err": 0.0, "ms": pack_ms, "eager_ms": pack_ms, "graph_ms": pack_graph_ms,
          "device_ms": dev_frames["pack_bits_kernel"][1] / n_frames, "plain_ms": pack_plain_ms,
          "bound_ms": pack_bound_ms, "bound_by": pack_bound_by, "library_ms": None},

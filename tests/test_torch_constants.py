@@ -128,3 +128,155 @@ def test_port_imports_neither_jax_nor_pil():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+# --------------------------------------------- host copies: map, io, counters
+
+def _scripted_maps():
+    """The same series of map operations on a SlamMap of each package."""
+    from anyfeature_vslam_tpu.slam.map_state import SlamMap as JaxMap
+    from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
+
+    rng = np.random.default_rng(0)
+    n, n_pts = 64, 120
+    feats = []
+    for k in range(5):
+        feats.append(dict(
+            uv_und=rng.uniform(0, 320, (n, 2)).astype(np.float32),
+            desc_bits=rng.integers(0, 2, (n, 256)).astype(np.uint8),
+            octave=rng.integers(0, 8, n).astype(np.int32),
+            size=rng.choice([1.0, 1.2, 1.44], n).astype(np.float32),
+            angle=rng.uniform(0, 6.28, n).astype(np.float32),
+            inv_sigma2=rng.uniform(0.5, 1, n).astype(np.float32),
+            valid=rng.random(n) < 0.95))
+    poses = []
+    for k in range(5):
+        t = np.eye(4, dtype=np.float32)
+        t[:3, 3] = [0.1 * k, 0.02 * k, 0.0]
+        poses.append(t)
+    pos = rng.uniform([-1, -1, 2], [1, 1, 4], (n_pts, 3)).astype(np.float32)
+    bits = rng.integers(0, 2, (n_pts, 256)).astype(np.uint8)
+    maps = []
+    for cls in (JaxMap, PortMap):
+        m = cls(max_kf=4, max_pt=100, n_feat=n, desc_dim=256)
+        kfs = [m.add_keyframe(poses[k], 0.1 * k, 3 * k, feats[k], np.full(n, -1, np.int32))
+               for k in range(5)]  # the fifth grows the keyframe capacity
+        # more points than max_pt: grows the point capacity
+        ids = m.add_points(pos, bits, kfs[0], np.ones(n_pts, np.float32))
+        for k in kfs:
+            slots = np.arange(n)[(np.arange(n) + k) % 3 != 0]
+            m.kf_matches[k][slots] = ids[(slots * (k + 1)) % n_pts]
+        m.update_point_stats(ids)
+        m.merge_points([int(ids[0]), int(ids[1])], [int(ids[2]), int(ids[3])])
+        m.remove_points(ids[10:14])
+        m.update_point_stats()
+        m.remove_keyframe(kfs[2])
+        maps.append(m)
+    return maps
+
+
+def test_map_state_copy_matches_jax():
+    jm, tm = _scripted_maps()
+    for name, v in vars(jm).items():
+        if not isinstance(v, np.ndarray) or name == "pt_dirty":
+            continue
+        got = getattr(tm, name)
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got, v, rtol=1e-6, atol=1e-6, err_msg=name)
+        else:
+            assert np.array_equal(got, v), name
+    assert jm.uid_slot == tm.uid_slot and jm.rev == tm.rev
+    assert sorted(jm.retired_kfs) == sorted(tm.retired_kfs)
+    for kf in jm.keyframe_ids():
+        assert np.array_equal(tm.covisibility_weights(kf), jm.covisibility_weights(kf))
+        for mw in (1, 15):
+            a, b = tm.covisible_keyframes(kf, min_weight=mw), jm.covisible_keyframes(kf, mw)
+            assert np.array_equal(a[0], b[0])
+    for sw in (False, True):
+        assert np.array_equal(tm.point_observation_counts(sw), jm.point_observation_counts(sw))
+    ids = np.nonzero(jm.pt_valid)[0][:30]
+    for a, b in zip(tm.observations_of_points(ids), jm.observations_of_points(ids)):
+        assert np.array_equal(a, b)
+    uid = next(iter(jm.retired_kfs))
+    np.testing.assert_allclose(tm.resolve_anchor(np.eye(4), uid), jm.resolve_anchor(np.eye(4), uid),
+                               rtol=1e-6, atol=1e-6)
+    assert tm.FREED_QUARANTINE_REVS == jm.FREED_QUARANTINE_REVS
+
+
+def test_trajectory_writers_match_jax(tmp_path):
+    from anyfeature_vslam_tpu.io import trajectory as jtraj
+    from anyfeature_vslam_tpu.ops import se3 as jse3
+    from anyfeature_vslam_tpu_torch.io import trajectory as ttraj
+    from anyfeature_vslam_tpu_torch.ops import se3 as tse3
+
+    jm, tm = _scripted_maps()
+    rng = np.random.default_rng(2)
+    rots = np.array(jse3.so3_exp(jnp.asarray(rng.normal(0, 1.5, (64, 3)).astype(np.float32))))
+    np.testing.assert_allclose(tse3.rot_to_quat(torch.from_numpy(rots)).numpy(),
+                               np.asarray(jse3.rot_to_quat(jnp.asarray(rots))), atol=1e-6)
+    traj = [(0.1 * i, np.eye(4, dtype=np.float32), int(jm.kf_uid[jm.keyframe_ids()[i % 3]]),
+             i == 4) for i in range(6)]
+    traj.append((0.9, np.eye(4, dtype=np.float32), next(iter(jm.retired_kfs)), False))
+    for mod, m, d in ((jtraj, jm, "j"), (ttraj, tm, "t")):
+        os.makedirs(tmp_path / d)
+        mod.save_keyframe_trajectory_vslamlab(str(tmp_path / d / "kf.csv"), m)
+        mod.save_frame_trajectory_tum(str(tmp_path / d / "tum.txt"), traj, m)
+        mod.save_frame_trajectory_kitti(str(tmp_path / d / "kitti.txt"), traj, m)
+        mod.save_statistics_yaml(str(tmp_path / d / "stats.yaml"), m, dict(resets=0))
+    for f in ("kf.csv", "tum.txt", "kitti.txt", "stats.yaml"):
+        assert (tmp_path / "t" / f).read_text() == (tmp_path / "j" / f).read_text(), f
+
+
+def test_perfcount_copy_matches_jax():
+    from anyfeature_vslam_tpu import perfcount as jpc
+    from anyfeature_vslam_tpu_torch import perfcount as tpc
+
+    for pc in (jpc, tpc):
+        pc.reset()
+        pc.bump("a")
+        pc.bump("a", 2.5)
+        with pc.timed_fetch():
+            pass
+        pc.trace_enabled = True
+        pc.event("e", x=1)
+        pc.trace_enabled = False
+        pc.event("f")
+    snap_j, snap_t = jpc.snapshot(), tpc.snapshot()
+    assert snap_t.keys() == snap_j.keys() and snap_t["a"] == snap_j["a"] == 3.5
+    assert snap_t["host_fetches"] == snap_j["host_fetches"] == 1
+    assert [e[1:] for e in tpc.events()] == [e[1:] for e in jpc.events()]
+    for pc in (jpc, tpc):
+        pc.reset()
+        pc.clear_events()
+
+
+def test_evaluation_copy_matches_jax(tmp_path):
+    from anyfeature_vslam_tpu.io import evaluation as jev
+    from anyfeature_vslam_tpu_torch.io import evaluation as tev
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(40, 3))
+    y = 1.7 * x @ np.asarray(jnp.eye(3))[::-1] + [0.3, -0.2, 1.0] + rng.normal(0, 0.01, (40, 3))
+    for a, b in zip(tev.umeyama_alignment(x, y), jev.umeyama_alignment(x, y)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert tev.ate_rmse(x, y)[0] == jev.ate_rmse(x, y)[0]
+    ts_a, ts_b = np.arange(40) / 30.0, np.arange(0, 40, 2) / 30.0 + 0.004
+    for a, b in zip(tev.associate(ts_a, ts_b), jev.associate(ts_a, ts_b)):
+        assert np.array_equal(a, b)
+    est, gt = tmp_path / "est.txt", tmp_path / "gt.txt"
+    for p, pts in ((est, x), (gt, y)):
+        p.write_text("".join(f"{i / 30.0:.6f} {v[0]} {v[1]} {v[2]} 0 0 0 1\n"
+                             for i, v in enumerate(pts)))
+    assert tev.evaluate(str(est), str(gt)) == jev.evaluate(str(est), str(gt))
+
+
+def test_threefry_draws_match_jax_random_uniform():
+    import jax
+
+    from anyfeature_vslam_tpu_torch.ops import rng
+
+    for seed, shape in ((0, (200, 1999)), (3, (200, 7)), (2**31 - 1, (11,))):
+        want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))
+        got = rng.uniform(seed, shape)
+        assert got.dtype == np.float32
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

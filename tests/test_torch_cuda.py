@@ -206,3 +206,40 @@ def test_best_two_dense_ties_at_radius_inf(cuda, nq, nc):
     _assert_packed_exact(args, 256)
     b, i, s = cuda_match.best_two(*args)
     assert bool((i < half).all()) and bool((s == b).all())
+
+
+def test_system_on_the_card_matches_the_cpu_port(cuda):
+    """The System on the card (K1 and K2 launched) against the same code on
+    the CPU (their plain twins) over the first 8 frames of the benchmark
+    scene at 320x240, 600 features: the same initialization frame and
+    initial points (integer results of the same searches); keyframe and
+    point counts within 10% and the centres of keyframes minted at the same
+    frames within 1e-2 map units, since BA sums in another order on the
+    card (the tolerances of tests/test_torch_system.py)."""
+    from types import SimpleNamespace
+
+    from anyfeature_vslam_tpu_torch.system import System
+    from torch_slice_scene import SliceScene
+
+    sc = SliceScene(320, 240)
+    frames = [sc.render(i)[0] for i in range(8)]
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        before = cuda_match.best_two.launches
+        system = System(SimpleNamespace(**sc.camera), n_features=600, device=dev)
+        rows = [(system.track_monocular(img, i / 30.0).name, system.map.n_keyframes(),
+                 system.map.n_points()) for i, img in enumerate(frames)]
+        m = system.map
+        centres = {int(m.kf_frame_id[k]): -m.kf_pose[k][:3, :3].T @ m.kf_pose[k][:3, 3]
+                   for k in m.keyframe_ids()}
+        runs.append((rows, centres, cuda_match.best_two.launches - before))
+    (crows, ccentres, c_launch), (grows, gcentres, g_launch) = runs
+    assert c_launch == 0 and g_launch > 0
+    first_ok = [next(i for i, r in enumerate(rows) if r[0] == "OK") for rows in (crows, grows)]
+    assert first_ok[0] == first_ok[1] and crows[first_ok[0]] == grows[first_ok[1]]
+    for k in (1, 2):
+        assert abs(grows[-1][k] - crows[-1][k]) <= 0.1 * crows[-1][k], (grows[-1], crows[-1])
+    common = set(ccentres) & set(gcentres)
+    assert len(common) >= 0.6 * len(ccentres)
+    for fid in common:
+        assert np.linalg.norm(gcentres[fid] - ccentres[fid]) < 1e-2, fid

@@ -74,3 +74,17 @@ def test_predict_pose_matches_jax():
         want = np.asarray(jtrack.predict_pose(jnp.asarray(a), jnp.asarray(b)))
         got = ttrack.predict_pose(torch.from_numpy(a), torch.from_numpy(b)).numpy()
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_project_and_k_matrix_match_jax():
+    rng = np.random.default_rng(5)
+    pts = rng.uniform([-2, -2, -1], [2, 2, 9], (200, 3)).astype(np.float32)
+    pts[:3, 2] = [0.0, 1e-12, -1e-12]  # the clamped depths
+    args = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, k1=0.26, k2=-0.95, p1=0.0, p2=0.0,
+                k3=1.16)
+    jc, tc = jcam.CameraParams.create(**args), tcam.CameraParams.create(**args, device="cpu")
+    np.testing.assert_array_equal(tc.k_matrix.numpy(), np.asarray(jc.k_matrix))
+    juv, jz = jcam.project(jc, jnp.asarray(pts))
+    tuv, tz = tcam.project(tc, torch.from_numpy(pts))
+    np.testing.assert_allclose(tuv.numpy(), np.asarray(juv), rtol=1e-6)
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
