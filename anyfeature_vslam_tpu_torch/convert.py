@@ -3,7 +3,10 @@
 orb32 has no learned weights (its constants live in ``OrbExtractor``); what
 crosses over is the camera and the fused step's device state, laid out as
 ``Tracker._build_fast_carry`` / ``_build_fast_state`` build it in the JAX
-package (anyfeature_vslam_tpu/slam/tracking.py).
+package (anyfeature_vslam_tpu/slam/tracking.py). A whole map crosses as a
+checkpoint file: the port's ``slam.map_state.SlamMap.load`` reads what the
+JAX package's ``SlamMap.save`` writes (the same format, both ways), and
+``System.load_checkpoint`` loads one into a running System.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ Covers the reference's two dataset layouts:
     ``path_rgb_0``.
 Calibration is the flat OpenCV-style YAML (Camera.fx .. Camera.k3, w/h, fps).
 The camera comes back as the port's ``CameraParams`` on the CPU; ``System``
-moves it to its device. PIL is imported only inside ``load_gray``, so the
+moves it to its device. ``find_vocabulary`` looks a feature's vocabulary up
+in a reference-style folder. PIL is imported only inside ``load_gray``, so the
 module imports on machines without it.
 """
 
@@ -124,3 +125,30 @@ def load_feature_settings(path: str) -> dict:
     if "FeatureMatcher.matchingTh" in y:
         out["match_th"] = float(y["FeatureMatcher.matchingTh"])
     return out
+
+
+# reference per-feature DBoW2 vocabulary file names (src/Vocabulary.cpp)
+VOCAB_FILENAMES = {
+    "orb32": "ORBvoc.txt",
+    "akaze61": "Akaze61_DBoW2_voc.txt",
+    "brisk48": "Brisk_DBoW2_voc.txt",
+    "surf64": "Surf64_DBoW2_voc.txt",
+    "kaze64": "Kaze64_DBoW2_voc.txt",
+    "sift128": "Sift128_DBoW2_voc.txt",
+    "r2d2_128": "R2d2_DBoW2_voc.txt",
+    "anyfeat_bin": "AnyFeatBin_DBoW2_voc.txt",
+    "anyfeat_nonbin": "AnyFeatNonBin_DBoW2_voc.txt",
+}
+
+
+def find_vocabulary(folder: str, feature: str) -> str | None:
+    """Locate a vocabulary for `feature` in a reference-style vocabulary
+    folder: the DBoW2 text name first, then a framework-native .npz."""
+    cands = []
+    if feature in VOCAB_FILENAMES:
+        cands.append(os.path.join(folder, VOCAB_FILENAMES[feature]))
+    cands.append(os.path.join(folder, f"{feature}_voc.npz"))
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    return None

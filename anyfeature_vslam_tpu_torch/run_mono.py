@@ -6,7 +6,9 @@ src/vslamlab_anyfeature_mono.cpp:47-109):
         sequence_path:/path/to/seq feature:orb32 exp_folder:/tmp/out \\
         exp_id:exp01 max_frames:100 verbose:1 device:cuda
 
-Runs on the card unless ``device:cpu`` is given. Reading PNG frames needs
+Runs on the card unless ``device:cpu`` is given. ``vocabulary_folder:``
+names a folder to take the feature's vocabulary from; without it the
+shipped one is used. Reading PNG frames needs
 PIL.
 """
 
@@ -44,6 +46,7 @@ def main(argv=None):
         calibration_yaml=args.get("calibration_yaml"),
         rgb_csv=args.get("rgb_csv"),
         feature_yaml=args.get("feature_yaml"),
+        vocabulary_folder=args.get("vocabulary_folder"),
         pace=args.get("pace", "0") not in ("0", "false"),
         n_features=int(args["n_features"]) if "n_features" in args else None,
         device=args.get("device", "cuda"),

@@ -3,13 +3,15 @@ anyfeature_vslam_tpu/slam/frame_ops.py, monocular part).
 
 Every guided search goes through ``matching.guided_best_two``, so on the
 card each one is a launch of kernel K2: the tracked frame's searches, the
-initialization search and the fusion searches. The searches over one
-keypoint set take ``f_words``, its descriptors packed once by the caller
+initialization search, the fusion searches, and the relocalization and
+loop-closing searches. The searches over one keypoint set take
+``f_words``, its descriptors packed once by the caller
 (``cuda_match.pack_bits``); without them the search packs its candidates
 itself, one more launch. The triangulation search is a dense masked
 Hamming matrix, as in the JAX package. Frustum check: Frame::isInFrustum
 (reference src/Frame.cc:276-331); searches: SearchByProjection and its
-frame-to-frame form (reference src/FeatureMatcher.cc:73-154, :1291-1404).
+frame-to-frame form (reference src/FeatureMatcher.cc:73-154, :1291-1404),
+the Sim3-guided form of loop closing (:287-397, :1066-1289).
 """
 
 from __future__ import annotations
@@ -287,9 +289,10 @@ def fuse_target_points_into_kf(pt_pos_t, pt_normal_t, pt_min_dist_t, pt_max_dist
 
 
 def match_descriptors_global(bits_q, valid_q, angle_q, bits_c, valid_c, angle_c,
-                             match_th, ratio):
+                             match_th, ratio, words_c=None):
     """Unconstrained descriptor matching with ratio + rotation consistency
-    (stands in for SearchByBoW, reference src/FeatureMatcher.cc:186-283)."""
+    (stands in for SearchByBoW, reference src/FeatureMatcher.cc:186-283).
+    words_c: the candidates' packed descriptors, if the caller has them."""
     dev = bits_q.device
     nq, nc = bits_q.shape[0], bits_c.shape[0]
     zuv = torch.zeros((nq, 2), device=dev)
@@ -299,7 +302,38 @@ def match_descriptors_global(bits_q, valid_q, angle_q, bits_c, valid_c, angle_c,
         torch.where(valid_q, torch.full((nq,), matching.INF, device=dev),
                     torch.full((nq,), -1.0, device=dev)),
         torch.zeros(nq, device=dev), torch.full((nq,), matching.INF, device=dev),
-        torch.ones(nc, device=dev), valid_c,
+        torch.ones(nc, device=dev), valid_c, c_words=words_c,
     )
     return matching.finish_match(best, idx, second, nc, match_th, ratio=ratio,
                                  angle_q=angle_q, angle_c=angle_c, unique=True)
+
+
+def match_descriptors_to_many(bits_q, valid_q, angle_q, bits_c, valid_c, angle_c, match_th,
+                              ratio, words_c=None):
+    """The frame's descriptors against C candidate keyframes (relocalization;
+    the reference loops SearchByBoW per candidate, src/Tracking.cc:1190-1210,
+    the JAX package vmaps ``match_descriptors_global``): one K2 launch per
+    candidate on the card. bits_c, valid_c, angle_c: sequences of C
+    per-keyframe tensors; words_c: their packed descriptors where the
+    caller has them (else each search packs its candidates). Returns
+    dict(idx, dist, valid), each (C, Nq)."""
+    out = [match_descriptors_global(bits_q, valid_q, angle_q, bits_c[i], valid_c[i], angle_c[i],
+                                    match_th, ratio, None if words_c is None else words_c[i])
+           for i in range(len(bits_c))]
+    return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+
+def match_loop_projection(pt_uv, pt_pred_size, pt_bits, pt_visible, f_uv, f_bits, f_size,
+                          f_valid, th_radius, match_th, f_words=None):
+    """Sim3-guided projection search of loop closing (reference
+    SearchByProjection(KF, Scw, points, matched, th),
+    src/FeatureMatcher.cc:287-397, and each direction of SearchBySim3,
+    :1066-1289): window th * predicted size, size band, distance
+    threshold, no ratio test. One K2 launch on the card."""
+    size_q = torch.clamp(pt_pred_size, 1.0, MAX_SIZE)
+    best, idx, second = matching.guided_best_two(
+        pt_bits, f_bits, pt_uv, f_uv, _disabled(pt_visible, th_radius * size_q),
+        size_q / 1.5, size_q * 1.5, f_size, f_valid, c_words=f_words,
+    )
+    return matching.finish_match(best, idx, second, f_bits.shape[0], match_th, ratio=None,
+                                 unique=True)

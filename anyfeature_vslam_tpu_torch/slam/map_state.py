@@ -13,11 +13,14 @@ covisibility, observation counts and point statistics through its ctypes
 library (native/slam_native.cpp) when it can; here those are vectorized
 numpy functions with the native kernels' semantics (first minimum median
 for the distinctive descriptor, the reference observation's scale band
-with maxKeyPtSize 3.58318). Checkpoints (``save``/``load``) belong to ROADMAP
-queue item 11 and are not ported.
+with maxKeyPtSize 3.58318). Checkpoints (``save``/``load``) write and read
+the JAX package's file format: a map saved by either package loads in the
+other.
 """
 
 from __future__ import annotations
+
+import ast
 
 import numpy as np
 
@@ -75,6 +78,10 @@ class SlamMap:
         self.kf_pose = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))  # Tcw
         # covisibility spanning tree: parent slot per keyframe (-1 = root)
         self.kf_parent = np.full(k, -1, np.int32)
+        # accepted loop-closure edges as (uid, uid) pairs: every later
+        # essential-graph solve includes all of them (reference
+        # Optimizer.cc:914-915 via KeyFrame::GetLoopEdges)
+        self.loop_edges: list[tuple[int, int]] = []
         self.kf_ts = np.zeros(k, np.float64)
         self.kf_frame_id = np.full(k, -1, np.int64)
         self.kf_matches = np.full((k, n), -1, np.int32)  # keypoint -> point id
@@ -109,6 +116,15 @@ class SlamMap:
         # for a window of revisions before reuse
         self.pt_freed_rev = np.full(p, -(10 ** 9), np.int64)
 
+        # called with the slot of every culled keyframe (System wires the
+        # keyframe database's erase: reference KeyFrame::SetBadFlag ->
+        # KeyFrameDatabase::erase)
+        self.on_kf_removed = None
+        self._next_kf = 0
+        self._next_pt = 0
+        # big-change counter (reference Map::InformNewBigChange, read by
+        # System.map_changed)
+        self.change_idx = 0
         # bumped on any mutation of point/keyframe geometry or structure;
         # device-side caches key on it
         self.rev = 0
@@ -131,12 +147,58 @@ class SlamMap:
         write)."""
         self.pt_dirty[ids] = True
 
+    # ---------------------------------------------------------- checkpoint
+    _SCALARS = ("max_kf", "max_pt", "n_feat", "desc_dim", "_next_kf", "_next_pt",
+                "_uid_counter")
+
+    def save(self, path: str):
+        """The whole map in the JAX package's checkpoint format: every numpy
+        array attribute, the retired-keyframe anchors, the loop edges and
+        the scalar metadata, in one compressed .npz."""
+        arrays = {k: v for k, v in self.__dict__.items() if isinstance(v, np.ndarray)}
+        ruids = sorted(self.retired_kfs)
+        arrays["__ret_uid__"] = np.asarray(ruids, np.int64)
+        arrays["__ret_parent__"] = np.asarray([self.retired_kfs[u][1] for u in ruids], np.int64)
+        arrays["__ret_tcp__"] = (np.stack([self.retired_kfs[u][0] for u in ruids]) if ruids
+                                 else np.zeros((0, 4, 4), np.float32))
+        arrays["__loop_edges__"] = np.asarray(self.loop_edges, np.int64).reshape(-1, 2)
+        meta = {k: getattr(self, k) for k in self._SCALARS}
+        meta["desc_dtype"] = np.dtype(self.desc_dtype).name
+        np.savez_compressed(path, __meta__=np.asarray([repr(meta)]), **arrays)
+
+    @staticmethod
+    def load(path: str, device="cuda") -> "SlamMap":
+        """A map from a checkpoint of either package (read with
+        allow_pickle=False); its point mirror will live on `device`."""
+        z = np.load(path, allow_pickle=False)
+        meta = ast.literal_eval(str(z["__meta__"][0]))
+        m = SlamMap(max_kf=meta["max_kf"], max_pt=meta["max_pt"], n_feat=meta["n_feat"],
+                    desc_dim=meta["desc_dim"], desc_dtype=np.dtype(meta["desc_dtype"]),
+                    device=device)
+        for k in z.files:
+            if k == "__meta__" or k.startswith("__ret_") or k == "__loop_edges__":
+                continue
+            setattr(m, k, z[k])
+        if "__loop_edges__" in z.files:
+            m.loop_edges = [(int(a), int(b)) for a, b in z["__loop_edges__"]]
+        m._next_kf = meta["_next_kf"]
+        m._next_pt = meta["_next_pt"]
+        m._uid_counter = meta.get("_uid_counter", int(m.kf_uid.max()) + 1)
+        m.retired_kfs = {int(u): (t.astype(np.float32), int(p)) for u, p, t in
+                         zip(z["__ret_uid__"], z["__ret_parent__"], z["__ret_tcp__"])}
+        m.uid_slot = {int(m.kf_uid[s]): int(s) for s in np.nonzero(m.kf_valid)[0]
+                      if m.kf_uid[s] >= 0}
+        return m
+
     # ------------------------------------------------------------------ KFs
     def n_keyframes(self) -> int:
         return int(self.kf_valid.sum())
 
     def keyframe_ids(self):
         return np.nonzero(self.kf_valid)[0]
+
+    def inform_big_change(self):
+        self.change_idx += 1
 
     def _grow_keyframes(self):
         """Double keyframe capacity in place (pads every kf_* array)."""
@@ -204,6 +266,7 @@ class SlamMap:
         self.kf_feat_valid[kf] = feats["valid"]
         self.kf_depth[kf] = feats.get("depth", -1.0)
         self.kf_matches[kf] = matches
+        self._next_kf = max(self._next_kf, kf + 1)
         uid = self._uid_counter
         self._uid_counter += 1
         self.kf_uid[kf] = uid
@@ -258,6 +321,8 @@ class SlamMap:
         self.kf_valid[kf] = False
         self.kf_parent[kf] = -1
         self.kf_matches[kf] = -1
+        if self.on_kf_removed is not None:
+            self.on_kf_removed(kf)
 
     def resolve_anchor(self, t_cr: np.ndarray, uid: int):
         """Walk retired-keyframe parents until a live anchor; returns the

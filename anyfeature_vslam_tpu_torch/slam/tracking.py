@@ -10,25 +10,35 @@ monocular keyframe decision (Tracking.cc:838-922).
 
 Frames are processed in order, each to its end (the JAX package's
 ``pipeline_depth=0``): the pipelined dispatch/retire tracker is ROADMAP
-queue item 8. Relocalization is item 6: a LOST frame stays LOST and counts
-in ``stats["lost_frames"]``, as in the JAX package without a keyframe
-database. Per-frame compute runs on the tracker's device; the map and
-bookkeeping are numpy on the host.
+queue item 8. A LOST frame relocalizes against the keyframe database
+(``database``, set by the System with its vocabulary; without one it stays
+LOST): BoW candidates, one K2 search per candidate, batched RANSAC-EPnP,
+pose LM, projection add-match rounds and the local map (reference
+Relocalization, src/Tracking.cc:1146-1309). Per-frame compute runs on the
+tracker's device; the map and bookkeeping are numpy on the host.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from enum import Enum
 
 import numpy as np
 import torch
 
+from .. import perfcount
 from ..frontend.extractor import ExtractorConfig, OrbExtractor
 from ..ops import camera as cam_ops
-from ..ops import initializer, pose_opt
+from ..ops import initializer, pnp, pose_opt
 from . import fast_track, frame_ops
 from .map_state import SlamMap
+
+
+RELOC_MAX_CANDIDATES = 8   # the JAX package's fixed candidate capacity
+RELOC_MIN_MATCHES = 15     # reference: >= 15 BoW matches per candidate
+RELOC_MIN_PNP = 10         # reference: >= 10 PnP / pose-LM inliers
+RELOC_GOOD = 50            # reference: success at >= 50 inliers
 
 
 class TrackState(Enum):
@@ -178,6 +188,7 @@ class Tracker:
         self.on_keyframe_feats = None  # callback(kf_id, DeviceFeats)
         self.on_reset = None          # callback() after a map reset
         self.kf_dev = None            # keyframe -> its feature tensors
+        self.database = None          # KeyFrameDatabase (relocalization)
         self.stats = dict(tracked_frames=0, lost_frames=0, resets=0, relocalizations=0)
 
     def _to_dev(self, a):
@@ -220,8 +231,13 @@ class Tracker:
                 # reference: reset the whole system if lost early (:355-363)
                 if self.map.n_keyframes() <= 5:
                     self._reset()
+        elif self._relocalization(frame):
+            self.state = TrackState.OK
+            self.stats["relocalizations"] += 1
+            self.last_reloc_frame_id = frame.frame_id
+            self.velocity = None
+            self.last = frame
         else:
-            # relocalization is not ported (ROADMAP queue item 6)
             self.stats["lost_frames"] += 1
         self._finish_frame(frame)
 
@@ -671,6 +687,132 @@ class Tracker:
         counts = ((m_all >= 0) & pt_mask[np.maximum(m_all, 0)]).sum(axis=1)
         if counts.max(initial=0) > 0:
             self.ref_kf = int(kfs[np.argmax(counts)])
+
+    # ----------------------------------------------------- relocalization
+    def _relocalization(self, frame: FrameData) -> bool:
+        """Reference Relocalization (Tracking.cc:1146-1309): BoW candidates
+        -> per-candidate descriptor search (>= 15 matches) -> RANSAC-EPnP ->
+        pose LM; success needs >= 50 inliers after the local map."""
+        if self.database is None:
+            return False
+        t0 = time.perf_counter()
+        try:
+            return self._relocalization_impl(frame)
+        finally:
+            dt = time.perf_counter() - t0
+            perfcount.bump("t_reloc_s", dt)
+            perfcount.event("reloc", fid=frame.frame_id, dur=dt)
+
+    def _relocalization_impl(self, frame: FrameData) -> bool:
+        m = self.map
+        cfg = self.cfg
+        feats = frame.feats
+        cands = [int(k) for k in self.database.detect_relocalization_candidates(
+            feats.dev("desc_bits"), feats.dev("valid"), m) if m.kf_valid[int(k)]]
+        cands = cands[:RELOC_MAX_CANDIDATES]
+        if not cands:
+            return False
+        # one K2 search per candidate, on its descriptors packed once and
+        # cached with its features (LocalMapper.kf_dev)
+        has = np.stack([(m.kf_matches[kf] >= 0) & m.kf_feat_valid[kf] for kf in cands])
+        if self.kf_dev is not None:
+            rows = [self.kf_dev(kf) for kf in cands]
+            bits, angle, words = ([r[k] for r in rows] for k in ("bits", "angle", "words"))
+        else:
+            bits = [self._to_dev(m.kf_desc_bits[kf]) for kf in cands]
+            angle = [self._to_dev(m.kf_angle[kf]) for kf in cands]
+            words = None
+        res = frame_ops.match_descriptors_to_many(
+            feats.dev("desc_bits"), feats.dev("valid"), feats.dev("angle"), bits,
+            list(self._to_dev(has)), angle, cfg.match_th, 0.75, words)
+        res = {k: _host(v) for k, v in res.items()}
+        nq = res["valid"].shape[1]
+        pts_c = np.zeros((len(cands), nq, 3), np.float32)
+        val_c = np.zeros((len(cands), nq), bool)
+        match_pt = np.full((len(cands), nq), -1, np.int32)
+        enough = np.zeros(len(cands), bool)
+        for i, kf in enumerate(cands):
+            sl = np.nonzero(res["valid"][i])[0]
+            if len(sl) < RELOC_MIN_MATCHES:
+                continue
+            enough[i] = True
+            ids = m.kf_matches[kf][res["idx"][i][sl]]
+            pts_c[i, sl] = m.pt_pos[ids]
+            val_c[i, sl] = True
+            match_pt[i, sl] = ids
+        if not enough.any():
+            return False
+        # one batched RANSAC-EPnP over the candidates with enough matches
+        # (the reference interleaves PnPsolver::iterate(5) across them)
+        sel = np.nonzero(enough)[0]
+        c = len(sel)
+        sigma2 = 1.0 / torch.clamp(feats.dev("inv_sigma2"), min=1e-9)
+        out = pnp.pnp_ransac_many(
+            self._to_dev(pts_c[sel]), feats.dev("uv_und").expand(c, -1, -1),
+            sigma2.expand(c, -1), self._to_dev(val_c[sel]), *self.intrinsics, cfg.seed)
+        out = {k: _host(v) for k, v in out.items()}
+        for j, i in enumerate(sel):
+            kf = cands[i]
+            if int(out["n_inliers"][j]) < RELOC_MIN_PNP:
+                continue
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = out["r"][j]
+            pose[:3, 3] = out["t"][j]
+            inl = out["inliers"][j] & val_c[i]
+            matches = np.full(m.n_feat, -1, np.int32)
+            k = min(nq, m.n_feat)
+            matches[:k] = np.where(inl, match_pt[i], -1)[:k]
+            pose, matches, n_in = self._pose_optimize(frame, matches, pose)
+            if n_in < RELOC_MIN_PNP:
+                continue
+            # coarse, then narrow projection add-match rounds (reference
+            # Tracking.cc:1256-1288)
+            if n_in < RELOC_GOOD:
+                matches2, n_add = self._reloc_add_matches(frame, kf, matches, pose, 10.0)
+                if n_add + n_in >= RELOC_GOOD:
+                    pose, matches, n_in = self._pose_optimize(frame, matches2, pose)
+                    if 30 < n_in < RELOC_GOOD:
+                        matches2, n_add = self._reloc_add_matches(frame, kf, matches, pose, 3.0)
+                        if n_in + n_add >= RELOC_GOOD:
+                            pose, matches, n_in = self._pose_optimize(frame, matches2, pose)
+            if n_in < RELOC_MIN_PNP:
+                continue
+            frame.pose = pose
+            frame.matches = matches
+            self.ref_kf = kf
+            if self._track_local_map(frame) and self.n_inliers >= RELOC_GOOD:
+                return True
+        return False
+
+    def _reloc_add_matches(self, frame, kf: int, matches, pose, radius: float):
+        """Projection search of the candidate keyframe's points not yet
+        matched (reference SearchByProjection(CurFrame, KF, sFound, r, th),
+        src/FeatureMatcher.cc:1406-1506), no ratio test. Returns (merged
+        matches, number added)."""
+        m = self.map
+        kf_m = m.kf_matches[kf]
+        cand = np.setdiff1d(np.unique(kf_m[kf_m >= 0]), matches[matches >= 0]).astype(np.int64)
+        cand = cand[m.pt_valid[cand]]
+        if len(cand) == 0:
+            return matches, 0
+        bucket = _pad_pow2(len(cand), lo=256)
+        idx = np.concatenate([cand, np.zeros(bucket - len(cand), np.int64)])
+        pad_valid = np.arange(bucket) < len(cand)
+        blk = m.mirror().gather(idx)
+        feats = frame.feats
+        res = frame_ops.project_and_match(
+            *blk[:7], self._to_dev(pad_valid), self._to_dev(pose.astype(np.float32)),
+            *self.intrinsics, *self._bounds_d, feats.dev("uv_und"), feats.dev("desc_bits"),
+            feats.dev("size"), feats.dev("valid"), float(radius), self.cfg.match_th, None)
+        res = {k: _host(v) for k, v in res.items()}
+        merged = matches.copy()
+        n_added = 0
+        for s_ in np.nonzero(res["valid"])[0]:
+            slot = int(res["idx"][s_])
+            if merged[slot] < 0:
+                merged[slot] = int(idx[s_])
+                n_added += 1
+        return merged, n_added
 
     # --------------------------------------------------------- keyframes
     def _need_new_keyframe(self, frame: FrameData) -> bool:

@@ -119,6 +119,9 @@ def test_port_imports_neither_jax_nor_pil():
         "for m in mods: importlib.import_module(m)\n"
         "import torch_slice_scene\n"
         "assert 'anyfeature_vslam_tpu_torch.slam.fast_track' in mods, mods\n"
+        "for m in ('place_recognition.vocab', 'place_recognition.database', 'slam.loop_closing',\n"
+        "          'ops.pnp', 'ops.sim3', 'ops.pose_graph'):\n"
+        "    assert 'anyfeature_vslam_tpu_torch.' + m in mods, (m, mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'PIL', 'anyfeature_vslam_tpu.'))]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -280,3 +283,87 @@ def test_threefry_draws_match_jax_random_uniform():
         got = rng.uniform(seed, shape)
         assert got.dtype == np.float32
         assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_place_recognition_host_copies_match_jax():
+    """The numpy parts copied from the JAX package's vocab.py and
+    database.py (k-means, distances, sparse bows, scoring, the query), the
+    vocabulary file names and the loop-closing constants."""
+    from anyfeature_vslam_tpu.io import dataset as jds
+    from anyfeature_vslam_tpu.place_recognition import database as jdb
+    from anyfeature_vslam_tpu.place_recognition import vocab as jvoc
+    from anyfeature_vslam_tpu.slam import loop_closing as jlc
+    from anyfeature_vslam_tpu.ops import pnp as jpnp
+    from anyfeature_vslam_tpu.ops import pose_graph as jpg
+    from anyfeature_vslam_tpu.ops import sim3 as jsim3
+    from anyfeature_vslam_tpu_torch.io import dataset as tds
+    from anyfeature_vslam_tpu_torch.place_recognition import database as tdb
+    from anyfeature_vslam_tpu_torch.place_recognition import vocab as tvoc
+    from anyfeature_vslam_tpu_torch.slam import loop_closing as tlc
+    from anyfeature_vslam_tpu_torch.slam import tracking as ttrack
+    from anyfeature_vslam_tpu_torch.ops import pnp as tpnp
+    from anyfeature_vslam_tpu_torch.ops import pose_graph as tpg
+    from anyfeature_vslam_tpu_torch.ops import sim3 as tsim3
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 2, (40, 256)).astype(np.uint8)
+    b = rng.integers(0, 2, (9, 256)).astype(np.uint8)
+    np.testing.assert_array_equal(tvoc._dist(a, b), jvoc._dist(a, b))
+    np.testing.assert_array_equal(tvoc._dist(a, b, chunk=7), jvoc._dist(a, b, chunk=7))
+    f = rng.normal(size=(30, 64)).astype(np.float32)
+    np.testing.assert_array_equal(tvoc._dist(f, f[:5]), jvoc._dist(f, f[:5]))
+    for data in (a, f):
+        for k in (4, 50):
+            np.testing.assert_array_equal(
+                tvoc._kmeans(data, k, 3, np.random.default_rng(5)),
+                jvoc._kmeans(data, k, 3, np.random.default_rng(5)))
+    voc = jvoc.train_vocabulary(a, branching=4, depth=2, iters=2)
+    jd = jdb.KeyFrameDatabase(voc, 4)
+    td = tdb.KeyFrameDatabase(tvoc.Vocabulary(voc.branching, voc.depth, voc.centroids, voc.idf),
+                              4, device="cpu")
+    words = rng.integers(-1, voc.n_words, 200)
+    for x, y in zip(td.bow_from_words(words), jd.bow_from_words(words)):
+        np.testing.assert_array_equal(x, y)
+    bows = [jd.bow_from_words(rng.integers(-1, voc.n_words, 100)) for _ in range(7)]
+    for kf, bow in enumerate(bows[:6]):
+        jd.add(kf, bow=bow)
+        td.add(kf, bow=bow)  # the sixth grows both tables
+    assert td.max_kf == jd.max_kf and td._cap == jd._cap
+    np.testing.assert_array_equal(td.kf_words, jd.kf_words)
+    np.testing.assert_array_equal(td.kf_weights, jd.kf_weights)
+    exclude = np.zeros(td.max_kf, bool)
+    exclude[2] = True
+    for x, y in zip(td._shared_and_scores(bows[6], exclude),
+                    jd._shared_and_scores(bows[6], exclude)):
+        np.testing.assert_array_equal(x, y)
+    groups = {0: [1, 3], 1: [0], 4: [5, 2]}
+    for order in (False, True):
+        assert td._query(bows[6], exclude, 0.0, groups, order) == \
+            jd._query(bows[6], exclude, 0.0, groups, order)
+    assert tds.VOCAB_FILENAMES == jds.VOCAB_FILENAMES
+    assert (tlc.MIN_BOW_MATCHES, tlc.MIN_SIM3_INLIERS, tlc.MIN_TOTAL_MATCHES,
+            tlc.CONSISTENCY_TH, tlc.COVIS_EDGE_MIN_WEIGHT, tlc.SIM3_SEARCH_RADIUS,
+            tlc.PROJ_GATE_RADIUS, tlc.FUSE_RADIUS) == (
+        jlc.MIN_BOW_MATCHES, jlc.MIN_SIM3_INLIERS, jlc.MIN_TOTAL_MATCHES, jlc.CONSISTENCY_TH,
+        jlc.COVIS_EDGE_MIN_WEIGHT, jlc.SIM3_SEARCH_RADIUS, jlc.PROJ_GATE_RADIUS,
+        jlc.FUSE_RADIUS)
+    for n in (10, 64, 65, 300, 1024, 1500):
+        x = [np.arange(n, dtype=np.float32)]
+        (pj,), vj = jlc._pad_pairs(x, n)
+        (pt,), vt = tlc._pad_pairs(x, n)
+        np.testing.assert_array_equal(pt, pj)
+        np.testing.assert_array_equal(vt, vj)
+    assert (tpnp.RANSAC_TH2, tpnp.MIN_SET) == (jpnp.RANSAC_TH2, jpnp.MIN_SET)
+    assert (tsim3.CHI2_INLIER, tsim3.MIN_SET) == (jsim3.CHI2_INLIER, jsim3.MIN_SET)
+    assert tpg.N_ITERS == jpg.N_ITERS
+    assert ttrack.RELOC_MAX_CANDIDATES == 8
+
+
+def test_find_vocabulary_matches_jax(tmp_path):
+    from anyfeature_vslam_tpu.io import dataset as jds
+    from anyfeature_vslam_tpu_torch.io import dataset as tds
+
+    (tmp_path / "orb32_voc.npz").write_bytes(b"")
+    (tmp_path / "Brisk_DBoW2_voc.txt").write_text("")
+    for feat in ("orb32", "brisk48", "sift128"):
+        assert tds.find_vocabulary(str(tmp_path), feat) == jds.find_vocabulary(str(tmp_path), feat)

@@ -243,3 +243,82 @@ def test_system_on_the_card_matches_the_cpu_port(cuda):
     assert len(common) >= 0.6 * len(ccentres)
     for fid in common:
         assert np.linalg.norm(gcentres[fid] - ccentres[fid]) < 1e-2, fid
+
+
+def test_place_recognition_and_geometry_on_the_card_match_the_cpu(cuda):
+    """The relocalization and loop-closing maths on the card against the CPU
+    port: vocabulary word ids exactly equal (integer distances, first
+    minimum); batched RANSAC-EPnP and Sim3 RANSAC inlier sets equal, poses
+    within 1e-4 (the same draws; float32 eigh / SVD in cuSOLVER); the pose
+    graph within 1e-4."""
+    import os
+
+    from anyfeature_vslam_tpu_torch.ops import pnp, pose_graph, se3, sim3
+    from anyfeature_vslam_tpu_torch.place_recognition import vocab
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    voc = vocab.Vocabulary.load(os.path.join(root, "vocabularies", "voc_orb32_38k.npz"))
+    rng = np.random.default_rng(0)
+    bits = torch.from_numpy(rng.integers(0, 2, (1000, 256)).astype(np.uint8))
+    valid = torch.from_numpy(rng.random(1000) < 0.9)
+    assert torch.equal(vocab.transform_words(voc, bits.to(cuda), valid.to(cuda)).cpu(),
+                       vocab.transform_words(voc, bits, valid))
+
+    def both(fn, *args, **kw):
+        on_cpu = fn(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args), **kw)
+        on_card = fn(*(torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+                       for a in args), **kw)
+        return on_cpu, on_card
+
+    # PnP: 3 candidates, 150 points, 30 outliers in one
+    t = se3.se3_exp(torch.tensor([0.2, -0.1, 0.15, 0.08, -0.1, 0.05])).numpy()
+    pts = rng.uniform([-2, -2, 4], [2, 2, 10], (3, 150, 3)).astype(np.float32)
+    pc = pts @ t[:3, :3].T + t[:3, 3]
+    uv = np.stack([500 * pc[..., 0] / pc[..., 2] + 320, 500 * pc[..., 1] / pc[..., 2] + 240],
+                  -1).astype(np.float32)
+    uv[1, :30] = rng.uniform([0, 0], [640, 480], (30, 2))
+    pv = np.ones((3, 150), bool)
+    pv[2, ::4] = False
+    c, g = both(pnp.pnp_ransac_many, pts, uv, np.ones((3, 150), np.float32), pv,
+                500.0, 500.0, 320.0, 240.0, 0)
+    assert torch.equal(c["inliers"], g["inliers"].cpu())
+    for k in ("r", "t"):
+        assert float((c[k] - g[k].cpu()).abs().max()) < 1e-4, k
+    # Sim3 RANSAC and LM on the pairs of one loop
+    r = se3.so3_exp(torch.tensor([0.1, -0.3, 0.2])).numpy()
+    pc2 = rng.uniform([-2, -2, 4], [2, 2, 10], (120, 3)).astype(np.float32)
+    pc1 = (1.7 * pc2 @ r.T + np.array([0.4, -0.2, 0.3])).astype(np.float32)
+    uv1 = (pc1[:, :2] / pc1[:, 2:] * 500 + [320, 240]).astype(np.float32)
+    uv2 = (pc2[:, :2] / pc2[:, 2:] * 500 + [320, 240]).astype(np.float32)
+    pc2[:20] += 2.0
+    ones = np.ones(120, np.float32)
+    v = np.ones(120, bool)
+    c, g = both(sim3.sim3_ransac, pc1, pc2, uv1, uv2, ones, ones, v, 500.0, 500.0, 320.0, 240.0, 0)
+    assert torch.equal(c["inliers"], g["inliers"].cpu())
+    for k in ("r", "t", "s"):
+        assert float((c[k] - g[k].cpu()).abs().max()) < 1e-4, k
+    start = tuple(x.numpy() for x in (c["r"], c["t"])) + (float(c["s"]),)
+    c, g = both(lambda *a: sim3.sim3_optimize(*start, *a, 500.0, 500.0, 320.0, 240.0),
+                pc1, pc2, uv1, uv2, ones, ones, v)
+    assert torch.equal(c["inliers"], g["inliers"].cpu())
+    for k in ("r", "t", "s"):
+        assert float((c[k] - g[k].cpu()).abs().max()) < 1e-4, k
+    # pose graph: a drifted ring of 12 Sim3 vertices with one loop edge
+    n = 12
+    xi = np.zeros((n, 7), np.float32)
+    xi[:, 3:6] = rng.normal(0, 0.3, (n, 3))
+    xi[:, :3] = rng.normal(0, 1.0, (n, 3))
+    rv, tv, sv = (x.numpy() for x in se3.sim3_exp7(torch.from_numpy(xi)))
+    ei = np.arange(n, dtype=np.int64)
+    ej = (ei + 1) % n
+    noise = torch.from_numpy(rng.normal(0, 0.02, (n, 7)).astype(np.float32))
+    meas = se3.sim3_compose(se3.sim3_exp7(noise), se3.sim3_compose(
+        (torch.from_numpy(rv[ei]), torch.from_numpy(tv[ei]), torch.from_numpy(sv[ei])),
+        se3.sim3_inv((torch.from_numpy(rv[ej]), torch.from_numpy(tv[ej]),
+                      torch.from_numpy(sv[ej])))))
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    c, g = both(pose_graph.optimize_pose_graph, rv, tv, sv, np.ones(n, bool), fixed, ei, ej,
+                *(x.numpy() for x in meas), np.ones(n, np.float32), np.ones(n, bool))
+    for x, y in zip(c, g):
+        assert float((x - y.cpu()).abs().max()) < 1e-4

@@ -55,7 +55,7 @@ def runs():
     jsys = JaxSystem(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
                      enable_loop_closing=False, async_mapping=False, use_mesh=False)
     tsys = System(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
-                  device="cpu")
+                  enable_loop_closing=False, device="cpu")
     return _run(jsys, frames), _run(tsys, frames)
 
 
@@ -159,15 +159,27 @@ def test_system_48_frames_ate():
 
 
 def test_system_defaults_and_unported_options():
+    """The JAX System's defaults except async_mapping: the shipped orb32
+    vocabulary is loaded, place recognition (the database the tracker
+    relocalizes with) and the loop closer exist; asynchronous and threaded
+    mapping, other sensors and a device mesh still raise."""
     import inspect
 
     params = inspect.signature(System).parameters
+    jparams = inspect.signature(JaxSystem).parameters
     assert params["device"].default == "cuda"
     assert params["async_mapping"].default is False
+    for name in ("vocabulary_path", "enable_loop_closing", "max_kf", "max_pt", "seed"):
+        assert params[name].default == jparams[name].default, name
     sc = SliceScene(160, 120, n_frames=2)
     cam = JaxCamera.create(**sc.camera)
+    system = System(cam, device="cpu")
+    assert system.vocabulary is not None and system.vocabulary.n_words == 38416
+    assert system.tracker.database is system.database is not None
+    assert system.loop_closer is not None and system.loop_closer.db is system.database
+    assert System(cam, device="cpu", enable_loop_closing=False).loop_closer is None
     for kw, item in ((dict(async_mapping=True), "8"), (dict(threaded_mapping=True), "8"),
-                     (dict(sensor="rgbd", bf=40.0), "10"), (dict(enable_loop_closing=True), "7"),
-                     (dict(vocabulary_path="voc.npz"), "6"), (dict(use_mesh=True), "12")):
+                     (dict(pipeline_depth=2), "8"), (dict(sensor="rgbd", bf=40.0), "10"),
+                     (dict(vocabulary_path="ORBvoc.txt"), "14"), (dict(use_mesh=True), "12")):
         with pytest.raises(NotImplementedError, match=f"queue item {item}"):
             System(cam, device="cpu", **kw)

@@ -167,3 +167,53 @@ def pose_error(t_cw, t_cw_gt):
     c = -t_cw[:3, :3].T @ t_cw[:3, 3]
     c_gt = -t_gt[:3, :3].T @ t_gt[:3, 3]
     return float(ang), float(np.linalg.norm(c - c_gt))
+
+
+class LoopScene:
+    """The two-session loop-closure sequence of tests/test_loop_live.py,
+    rendered in memory: tools/make_synth_sequence.py with
+    ``trajectory:two_circles_revisit texture:distinct seed:3`` (a lap of
+    circle A, a transit, a lap of circle B with a height oscillation, a
+    transit back, a revisit lap of A), the same camera as SliceScene and
+    the same uint8 frames as the generator's PNGs (no noise).
+    ``session_a`` and ``session_b`` are the frame ranges the test gives
+    its two sessions."""
+
+    def __init__(self, width: int, height: int, n_frames: int = 360, seed: int = SEED):
+        self.width, self.height = width, height
+        self.fx = self.fy = 0.8125 * width
+        self.cx, self.cy = width / 2.0, height / 2.0
+        k = np.array([[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]], np.float64)
+        self.scene = PlaneScene(k, width, height, seed=seed,
+                                tex=make_texture(n_blobs=15000, seed=seed, distinct=True))
+        n, radius = n_frames, RADIUS
+        na, nt1 = int(round(0.30 * n)), int(round(0.07 * n))
+        nb, nt2 = int(round(0.30 * n)), int(round(0.07 * n))
+        ne = n - na - nt1 - nb - nt2
+        bx = 2.5 + 3.5 * radius
+        p = []
+        for i in range(na):
+            ang = 2 * np.pi * i / na
+            p.append(look_down_pose(2.5 + radius * np.cos(ang), 2.5 + radius * np.sin(ang), -2.0))
+        for i in range(nt1):
+            f = (i + 1) / nt1
+            p.append(look_down_pose((2.5 + radius) * (1 - f) + (bx + radius) * f, 2.5, -2.0))
+        for i in range(nb):
+            ang = 2 * np.pi * i / nb
+            p.append(look_down_pose(bx + radius * np.cos(ang), 2.5 + radius * np.sin(ang),
+                                    -2.0 - 0.5 * np.sin(ang)))
+        for i in range(nt2):
+            f = (i + 1) / nt2
+            p.append(look_down_pose((bx + radius) * (1 - f) + (2.5 + radius) * f, 2.5, -2.0))
+        for i in range(ne):
+            ang = 2 * np.pi * i / na
+            p.append(look_down_pose(2.5 + radius * np.cos(ang), 2.5 + radius * np.sin(ang), -2.0))
+        self.poses = p
+        self.session_a = range(na)
+        self.session_b = range(na + nt1, n)
+
+    camera = SliceScene.camera
+
+    def render(self, i: int):
+        """uint8 image of frame i."""
+        return np.clip(self.scene.render(self.poses[i]), 0, 255).astype(np.uint8)
