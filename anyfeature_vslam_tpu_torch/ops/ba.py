@@ -16,8 +16,10 @@ fixed length and the state freezes (``torch.where``) once its loop would
 have ended, which gives the same result with no host sync per iteration.
 The dense solve is ``torch.linalg.solve_ex`` (no error check, no sync).
 Not ported: the compensated segment sum and the sharded layouts (global BA
-and multi-device BA, ROADMAP items 7 and 12) and the chunked solve that
-interleaves TPU streams (item 8).
+and multi-device BA, ROADMAP items 7 and 12) and the chunked solve
+(``bundle_adjust_two_stage_chunked``), which exists to interleave programs
+on the TPU's single stream: on the card the asynchronous schedules issue
+the solve on a mapping stream of its own (streams.py).
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ other, and unlike the JAX dispatcher it has no size threshold: every
 guided search on the card goes through the kernel. Binary candidates may
 come packed (``pack_bits``, once per candidate set, shared by several
 searches); the binary search is then one launch, since each warp packs
-its own queries. ``best_two.launches`` counts search launches,
-``pack_bits.launches`` pack launches.
+its own queries. ``best_two.launches`` counts search launches (and
+``thread_launches()`` those made by the calling thread), ``pack_bits.launches``
+pack launches.
 
 Semantics (both versions): for each query, among candidates with
 |du|, |dv| <= q_rad (a negative radius disables the row), q_slo <= c_size
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -206,7 +208,14 @@ def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid, c
     if err != 0:
         raise RuntimeError(f"best_two kernel launch failed: CUDA error {err}")
     best_two.launches += 1
+    _local.best_two = thread_launches() + 1
     return best, idx, second
 
 
 best_two.launches = 0
+_local = threading.local()
+
+
+def thread_launches() -> int:
+    """Launches of ``best_two``'s kernel made by the calling thread."""
+    return getattr(_local, "best_two", 0)

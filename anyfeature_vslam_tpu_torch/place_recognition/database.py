@@ -17,8 +17,9 @@ word ids). Selection semantics:
   relocalization candidates (KeyFrameDatabase.cc:199-309): the same without
     the covisibility exclusion and minScore gate, ordered by score.
 
-The threaded mode's deferred transform (``dispatch_bow``) is ROADMAP.md
-queue item 8.
+``dispatch_bow`` issues the descent and returns its readiness probe
+without waiting (the threaded loop stage folds it one keyframe later);
+``compute_bow`` waits on it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import streams
 from . import vocab as vocab_mod
 
 
@@ -76,15 +78,22 @@ class KeyFrameDatabase:
             w = w / norm
         return ids.astype(np.int32), w
 
-    def compute_bow(self, desc_bits, valid):
-        """Sparse bow of a descriptor set (numpy arrays or tensors): the tree
-        descent on the database's device, then one fetch of the word ids."""
+    def dispatch_bow(self, desc_bits, valid):
+        """Issue the vocabulary descent of a descriptor set (numpy arrays or
+        tensors) on the database's device; returns the word ids' readiness
+        probe (``streams.Ready``) without waiting. Pair with
+        ``bow_from_words(ready.host()[0])``."""
         if not isinstance(desc_bits, torch.Tensor):
             desc_bits = torch.from_numpy(np.ascontiguousarray(desc_bits))
             valid = torch.from_numpy(np.ascontiguousarray(valid))
         words = vocab_mod.transform_words(self.vocab, desc_bits.to(self.device),
                                           valid.to(self.device))
-        return self.bow_from_words(words.cpu().numpy())
+        return streams.Ready((words,))
+
+    def compute_bow(self, desc_bits, valid):
+        """Sparse bow of a descriptor set: the descent, then one fetch of the
+        word ids."""
+        return self.bow_from_words(self.dispatch_bow(desc_bits, valid).host()[0])
 
     def add(self, kf: int, desc_bits=None, valid=None, bow=None):
         while kf >= self.max_kf:

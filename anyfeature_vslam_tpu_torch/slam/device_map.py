@@ -10,9 +10,17 @@ tensors. Consumers pass id arrays and gather on the device (``gather``).
 The JAX package pads the dirty ids to a bucket and drops the padding in a
 donated scatter program; eager PyTorch writes the rows in place with no
 padding.
+
+The tracker and a threaded mapping worker both sync and gather, each on
+its own thread and stream: a lock serializes the operations, and each one
+waits on an event recorded after the previous one when that ran on another
+stream, so an in-place row update never overtakes a pending gather (or the
+reverse). The rows' memory is kept alive for every stream that read it.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -28,6 +36,28 @@ class DevicePointMirror:
         self.device = torch.device(device)
         self._arrs = None
         self._cap = 0
+        self._lock = threading.Lock()
+        self._last = None   # (stream id, event) after the last operation
+        self._readers = set()
+
+    def _order(self):
+        """Order this operation after the last one on another stream."""
+        if self.device.type != "cuda":
+            return None
+        cur = torch.cuda.current_stream(self.device)
+        if self._last is not None and self._last[0] != cur.cuda_stream:
+            cur.wait_event(self._last[1])
+        if self._arrs is not None and cur.cuda_stream not in self._readers:
+            for a in self._arrs:
+                a.record_stream(cur)
+            self._readers.add(cur.cuda_stream)
+        return cur
+
+    def _done(self, cur):
+        if cur is not None:
+            ev = torch.cuda.Event()
+            ev.record(cur)
+            self._last = (cur.cuda_stream, ev)
 
     def _upload(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -38,10 +68,20 @@ class DevicePointMirror:
         m.pt_dirty[:] = False
         self._arrs = tuple(self._upload(getattr(m, name)) for name in FIELDS)
         self._cap = m.max_pt
+        self._readers = set()
+        if self.device.type == "cuda":
+            self._readers.add(torch.cuda.current_stream(self.device).cuda_stream)
 
     def sync(self):
         """Bring the mirror up to date with the host map; returns the
         device tensors in FIELDS order."""
+        with self._lock:
+            cur = self._order()
+            arrs = self._sync()
+            self._done(cur)
+            return arrs
+
+    def _sync(self):
         m = self.map
         if self._arrs is None or self._cap != m.max_pt:
             self._full_upload()
@@ -59,11 +99,14 @@ class DevicePointMirror:
         """Sync, then gather rows on the device: (pos, normal, min_d,
         max_d, ref_size, ref_dist, desc_bits, valid) for `ids` (numpy or
         tensor, any shape; -1 entries come back invalid)."""
-        arrs = self.sync()
         if not isinstance(ids, torch.Tensor):
             ids = self._upload(np.asarray(ids, np.int64))
-        ids = ids.to(device=self.device, dtype=torch.int64)
-        safe = torch.clamp(ids, min=0)
-        out = [a[safe] for a in arrs]
-        out[-1] = out[-1] & (ids >= 0)
+        with self._lock:
+            cur = self._order()
+            arrs = self._sync()
+            ids = ids.to(device=self.device, dtype=torch.int64)
+            safe = torch.clamp(ids, min=0)
+            out = [a[safe] for a in arrs]
+            out[-1] = out[-1] & (ids >= 0)
+            self._done(cur)
         return tuple(out)

@@ -1,6 +1,5 @@
 """Local mapping: keyframe processing, triangulation, fusion, culling and
-local BA (port of anyfeature_vslam_tpu/slam/local_mapping.py, synchronous
-monocular path).
+local BA (port of anyfeature_vslam_tpu/slam/local_mapping.py, monocular).
 
 Per new keyframe (reference LocalMapping::Run, src/LocalMapping.cc:48-119):
 observation bookkeeping, recent-map-point culling (:194-229), new-point
@@ -9,23 +8,32 @@ the neighbours in both directions (:475-555), local bundle adjustment with
 outlier erasure (two-stage schedule, reference src/Optimizer.cc:450-768)
 and redundant-keyframe culling (:651-741).
 
-The event runs to its end before the tracker sees the next frame (the JAX
-package's ``defer_ba=False, overlap_results=False``): each device program
-is followed by its fold into the host map. The deferred and overlapped
-forms (async and threaded mapping) are ROADMAP queue item 8. Device work:
-the triangulation searches (dense masked Hamming), one K2 launch per
-fusion target and direction, and the BA solve; the keyframes' features
-stay on the device in a per-keyframe cache.
+Each device program is a dispatch (``_dispatch_*``: the searches issued,
+their results copied toward the host behind a ``streams.Ready`` probe) and
+a fold (``_fold_*``: the results written into the host map, guarded by
+keyframe uid and point validity). Synchronously (``defer_ba=False,
+overlap_results=False``) each dispatch is folded at once. With
+``defer_ba`` the local BA solve is issued on the mapping stream and left
+running; its fold lands at the next event, at the tracker's interrupt or
+at a loop stage's ``pre_mutate`` (asynchronous mapping), or from a watcher
+thread as soon as its results are on the host (threaded mapping, with
+``overlap_results``: triangulation and fusion are issued together and
+waited on with the map lock released). Device work: the triangulation
+searches (dense masked Hamming), one K2 launch per fusion target and
+direction, and the BA solve; the keyframes' features stay on the device
+in a per-keyframe cache.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import numpy as np
 import torch
 
-from .. import perfcount
+from .. import perfcount, streams
 from ..ops import ba as ba_ops
 from ..ops import cuda_match
 from . import frame_ops
@@ -71,12 +79,71 @@ def _resolve_merge_chains(pairs):
 
 def run_bundle_adjustment(slam_map: SlamMap, intrinsics, free_kfs, fixed_kfs, pt_ids,
                           n_iters_a: int = 5, n_iters_b: int = 10,
-                          remove_outliers: bool = True, device="cuda"):
+                          remove_outliers: bool = True, device="cuda", defer: bool = False,
+                          stream=None, lock=None):
     """Assemble COO arrays from the map, run the two-stage LM on `device`
     and write refined poses (free keyframes) and points back into the map;
     erase outlier observations (reference src/Optimizer.cc:701-747).
     intrinsics: (fx, fy, cx, cy) as Python floats. Returns the problem's
-    sizes and padded caps, or None when there was nothing to solve."""
+    sizes and padded caps, or None when there was nothing to solve.
+
+    defer=True returns a ``fold()`` closure instead of writing back: the
+    solve is issued (on `stream`, when given) and its results copied to
+    pinned host buffers, and ``fold.ready`` (a ``streams.Ready``) says when
+    they have landed; ``fold.info`` holds the sizes. fold() writes them into
+    the map, guarded by keyframe uid (a slot culled meanwhile may hold
+    another keyframe) and by point validity. `lock`, when given, is held
+    while the problem is read from the map."""
+    with lock if lock is not None else contextlib.nullcontext():
+        prob = _assemble_ba(slam_map, free_kfs, fixed_kfs, pt_ids)
+    if prob is None:
+        return None
+    kf_list, free_kfs, pt_ids, obs_kf, obs_slot, arrays, info = prob
+    kf_uids = {kf: int(slam_map.kf_uid[kf]) for kf in kf_list}
+    with streams.use(stream if defer else None):
+        up = [torch.from_numpy(a).to(device) for a in arrays]
+        new_poses, new_pts, chi2, z, _ = ba_ops.bundle_adjust_two_stage(
+            *up, *intrinsics, n_iters_a=n_iters_a, n_iters_b=n_iters_b)
+        outlier = ba_ops.classify_outliers(chi2, z)
+        ready = streams.Ready((new_poses[: len(free_kfs)], new_pts[: len(pt_ids)],
+                               outlier[: info["n_obs"]]))
+
+    def fold():
+        """Write the landed results into the map (reference LocalMapping
+        overlap with mbAbortBA, src/LocalMapping.cc:48-119: until the fold,
+        tracking keeps using the pre-BA state)."""
+        np_poses, np_pts, np_outlier = ready.host()
+        info["n_outliers"] = int(np_outlier.sum())
+        slam_map.rev += 1
+
+        def same_kf(kf):
+            return slam_map.kf_valid[kf] and int(slam_map.kf_uid[kf]) == kf_uids[kf]
+
+        for li, kf in enumerate(free_kfs):
+            if same_kf(kf):
+                slam_map.kf_pose[kf] = np_poses[li]
+        still = slam_map.pt_valid[pt_ids]
+        slam_map.pt_pos[pt_ids[still]] = np_pts[still]
+        slam_map.mark_points_dirty(pt_ids[still])
+        if remove_outliers:
+            for i in np.nonzero(np_outlier)[0]:
+                kf = kf_list[obs_kf[i]]
+                if same_kf(kf):
+                    slam_map.kf_matches[kf][obs_slot[i]] = -1
+
+    if defer:
+        fold.ready = ready
+        fold.info = info
+        return fold
+    fold()
+    return info
+
+
+def _assemble_ba(slam_map, free_kfs, fixed_kfs, pt_ids):
+    """The BA problem read from the host map: (keyframes, free keyframes,
+    point ids, observation keyframe index and slot, the padded arrays
+    (poses, points, free, obs kf, obs point, uv, weight, valid), sizes), or
+    None when there is nothing to solve."""
     free_kfs = [int(k) for k in free_kfs]
     fixed_kfs = [int(k) for k in fixed_kfs if k not in free_kfs]
     kf_list = free_kfs + fixed_kfs
@@ -122,37 +189,21 @@ def run_bundle_adjustment(slam_map: SlamMap, intrinsics, free_kfs, fixed_kfs, pt
         out[:n_obs] = a
         return out
 
-    okf = padded(obs_kf, o_cap, np.int64)
-    opt = padded(np.concatenate(obs_pt), o_cap, np.int64)
-    ouv = padded(np.concatenate(obs_uv), (o_cap, 2), np.float32)
-    ow = padded(np.concatenate(obs_w), o_cap, np.float32)
-    ovalid = padded(np.ones(n_obs, bool), o_cap, bool)
-    up = [torch.from_numpy(a).to(device) for a in (poses, pts, free, okf, opt, ouv, ow, ovalid)]
-    new_poses, new_pts, chi2, z, _ = ba_ops.bundle_adjust_two_stage(
-        *up, *intrinsics, n_iters_a=n_iters_a, n_iters_b=n_iters_b)
-    outlier = ba_ops.classify_outliers(chi2, z)
-    np_poses = new_poses[: len(free_kfs)].cpu().numpy()
-    np_pts = new_pts[: len(pt_ids)].cpu().numpy()
-    outlier = outlier[:n_obs].cpu().numpy()
-
-    slam_map.rev += 1
-    for li, kf in enumerate(free_kfs):
-        if slam_map.kf_valid[kf]:
-            slam_map.kf_pose[kf] = np_poses[li]
-    slam_map.pt_pos[pt_ids] = np_pts
-    slam_map.mark_points_dirty(pt_ids)
-    if remove_outliers:
-        for i in np.nonzero(outlier)[0]:
-            slam_map.kf_matches[kf_list[obs_kf[i]]][obs_slot[i]] = -1
-    return dict(n_kf=len(kf_list), n_pt=len(pt_ids), n_obs=n_obs, k_cap=k_cap, p_cap=p_cap,
-                o_cap=o_cap, dense=ba_ops.uses_dense(k_cap, p_cap),
-                n_outliers=int(outlier.sum()))
+    arrays = (poses, pts, free, padded(obs_kf, o_cap, np.int64),
+              padded(np.concatenate(obs_pt), o_cap, np.int64),
+              padded(np.concatenate(obs_uv), (o_cap, 2), np.float32),
+              padded(np.concatenate(obs_w), o_cap, np.float32),
+              padded(np.ones(n_obs, bool), o_cap, bool))
+    info = dict(n_kf=len(kf_list), n_pt=len(pt_ids), n_obs=n_obs, k_cap=k_cap, p_cap=p_cap,
+                o_cap=o_cap, dense=ba_ops.uses_dense(k_cap, p_cap))
+    return kf_list, free_kfs, pt_ids, obs_kf, obs_slot, arrays, info
 
 
 class LocalMapper:
-    """Synchronous monocular local mapping over a SlamMap. intrinsics:
-    (fx, fy, cx, cy) Python floats; width, height: the image size (fusion
-    bounds); device: where the mapping programs run."""
+    """Monocular local mapping over a SlamMap. intrinsics: (fx, fy, cx, cy)
+    Python floats; width, height: the image size (fusion bounds); device:
+    where the mapping programs run; lock: the System's map lock (a private
+    one otherwise), held only around the event's map mutations."""
 
     # neighbour schedules of the JAX package (targets are processed up to
     # the padded count; see _pad_sched)
@@ -161,7 +212,7 @@ class LocalMapper:
 
     def __init__(self, slam_map: SlamMap, intrinsics, width: int, height: int,
                  match_th: float = 75.0, max_ba_kfs: int = 20, size_tolerance: float = 1.2,
-                 device="cuda"):
+                 device="cuda", lock=None):
         self.map = slam_map
         self.intrinsics = tuple(float(v) for v in intrinsics)
         fx, fy, cx, cy = self.intrinsics
@@ -172,31 +223,52 @@ class LocalMapper:
         # sizeTolerance = extractor scale factor (reference src/Frame.cc:73)
         self.size_tolerance = float(size_tolerance)
         self.device = torch.device(device)
+        self.lock = lock if lock is not None else threading.RLock()
+        # the stream of the deferred solves (the System's mapping stream on
+        # the card; None: the current stream)
+        self.stream = None
+        # True between recent-point culling and the triangulation / fusion
+        # folds, where the map is temporarily sparse (the tracker does not
+        # build its snapshot there)
+        self.in_sparse_phase = False
+        # non-zero once an overlapped event's folds have landed: the token
+        # of that event (the tracker rebuilds its snapshot promptly so the
+        # new points become matchable, and clears the token it saw)
+        self.fresh_event = 0
+        self._n_events = 0
         self.reset()
 
     def reset(self):
-        """Forget the recent points and the keyframe cache (a map reset)."""
+        """Forget the recent points, the keyframe cache and a pending fold
+        (a map reset: the fold's results belong to the old map)."""
         # recent points: pt_id -> keyframe count at creation (for culling)
         self.recent: dict[int, int] = {}
         self.n_kf_processed = 0
         # per-keyframe feature tensors on the device, keyed by slot and
-        # guarded by uid against slot recycling
+        # guarded by uid against slot recycling, with their hand-off
         self._dev_kf: dict[int, tuple] = {}
+        self._pending_fold = None
         self.stage_times: dict[str, list] = {}
         self.ba_log: list[dict] = []
 
     _DEV_FIELDS = ("uv", "bits", "size", "valid", "inv_sigma2", "angle")
 
+    def _cache(self, kf: int, ent: dict):
+        """Pack the descriptors and cache the entry with its hand-off (the
+        tensors were produced on the current stream)."""
+        ent["words"] = cuda_match.pack_bits(ent["bits"].contiguous())
+        self._dev_kf[int(kf)] = (int(self.map.kf_uid[kf]), ent, streams.Handoff(ent.values()))
+
     def seed_kf_device(self, kf: int, feats):
         """Adopt a new keyframe's features already on the device."""
-        ent = dict(uv=feats.dev("uv_und"), bits=feats.dev("desc_bits"), size=feats.dev("size"),
-                   valid=feats.dev("valid"), inv_sigma2=feats.dev("inv_sigma2"),
-                   angle=feats.dev("angle"))
-        self._dev_kf[int(kf)] = (int(self.map.kf_uid[kf]), ent)
+        self._cache(kf, dict(uv=feats.dev("uv_und"), bits=feats.dev("desc_bits"),
+                             size=feats.dev("size"), valid=feats.dev("valid"),
+                             inv_sigma2=feats.dev("inv_sigma2"), angle=feats.dev("angle")))
 
     def kf_dev(self, kf: int) -> dict:
         """The keyframe's feature tensors on the device (uploaded from the
-        map on first use), plus its packed descriptors (``words``)."""
+        map on first use), plus its packed descriptors (``words``), ready
+        for the current stream."""
         kf = int(kf)
         uid = int(self.map.kf_uid[kf])
         ent = self._dev_kf.get(kf)
@@ -205,17 +277,74 @@ class LocalMapper:
             host = dict(uv=m.kf_uv[kf], bits=m.kf_desc_bits[kf], size=m.kf_size[kf],
                         valid=m.kf_feat_valid[kf], inv_sigma2=m.kf_inv_sigma2[kf],
                         angle=m.kf_angle[kf])
-            ent = (uid, {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                         for k, v in host.items()})
-            self._dev_kf[kf] = ent
-        d = ent[1]
-        if "words" not in d:
-            d["words"] = cuda_match.pack_bits(d["bits"].contiguous())
-        return d
+            self._cache(kf, {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                             for k, v in host.items()})
+            ent = self._dev_kf[kf]
+        ent[2].take()
+        return ent[1]
 
     # ------------------------------------------------------------------
-    def process_keyframe(self, kf: int):
-        """One keyframe event, run to its end."""
+    def fold_pending(self):
+        """Land a dispatched local BA (or global BA) before the next map
+        mutation."""
+        if self._pending_fold is not None:
+            f = self._pending_fold
+            self._pending_fold = None
+            f()
+
+    def flush_results(self):
+        """Land the pending deferred fold into the map."""
+        self.fold_pending()
+
+    def arm_fold_watcher(self):
+        """Land the pending fold from a side thread as soon as its results
+        are on the host, under the lock; a no-op if flush_results consumed
+        it meanwhile (the worker-thread form of the reference's
+        interruptible local BA, src/LocalMapping.cc:78,125)."""
+        f = self._pending_fold
+        if f is None:
+            return
+
+        def run():
+            t_w = time.perf_counter()
+            f.ready.wait()
+            perfcount.event("ba_ready", dur=time.perf_counter() - t_w)
+            with self.lock:
+                if self._pending_fold is f:
+                    t0 = time.perf_counter()
+                    self.fold_pending()
+                    perfcount.event("ba_fold", dur=time.perf_counter() - t0)
+
+        threading.Thread(target=run, daemon=True, name="ba-fold").start()
+
+    def wait_pending_ready(self):
+        """Block (lock-free) until the pending fold's results are on the
+        host."""
+        f = self._pending_fold
+        if f is not None:
+            f.ready.wait()
+
+    def is_idle(self) -> bool:
+        """Reference LocalMapping::AcceptKeyFrames (LocalMapping.cc:576-588):
+        busy while a dispatched solve's results have not landed. Gates the
+        keyframe decision's c1b."""
+        f = self._pending_fold
+        return f is None or f.ready.is_set()
+
+    # ------------------------------------------------------------------
+    def process_keyframe(self, kf: int, defer_ba: bool = False, overlap_results: bool = False):
+        """One keyframe event (reference LocalMapping::Run order,
+        src/LocalMapping.cc:48-119).
+
+        defer_ba: the local BA is issued and not waited on; it folds at
+        the next event, at an interrupt or a loop stage's pre_mutate.
+
+        overlap_results=False: each device program is followed by its fold
+        (deterministic). True (threaded mode): triangulation and fusion are
+        issued together with the lock released, their results waited on
+        with the lock released, then folded under short lock windows; the
+        fusion does not see this event's new points (they fuse at the next
+        event), as in the JAX package."""
         stages = self.stage_times
         t = time.perf_counter()
 
@@ -224,36 +353,75 @@ class LocalMapper:
             stages.setdefault(name, []).append(t1 - t0)
             return t1
 
+        perfcount.event("map_event_start", kf=int(kf))
+        if self._pending_fold is not None:
+            # wait for the previous solve's results with the lock released
+            self.wait_pending_ready()
+            t = mark("fold_wait", t)
+            with self.lock:
+                self.flush_results()
+            t = mark("fold", t)
         m = self.map
-        self.n_kf_processed += 1
-        mm = m.kf_matches[kf]
-        m.update_point_stats(np.unique(mm[mm >= 0]))
-        # first connection update: spanning-tree parent = max-weight
-        # covisible (reference KeyFrame::UpdateConnections)
-        if m.kf_parent[kf] < 0 and int(m.kf_uid[kf]) != 0:
-            w = m.covisibility_weights(kf)
-            w[kf] = 0
-            best = int(np.argmax(w))
-            if w[best] > 0:
-                m.kf_parent[kf] = best
-        self._cull_recent_points()
+        with self.lock:
+            self.n_kf_processed += 1
+            mm = m.kf_matches[kf]
+            m.update_point_stats(np.unique(mm[mm >= 0]))
+            # first connection update: spanning-tree parent = max-weight
+            # covisible (reference KeyFrame::UpdateConnections)
+            if m.kf_parent[kf] < 0 and int(m.kf_uid[kf]) != 0:
+                w = m.covisibility_weights(kf)
+                w[kf] = 0
+                best = int(np.argmax(w))
+                if w[best] > 0:
+                    m.kf_parent[kf] = best
+            self._cull_recent_points()
+            self.in_sparse_phase = True
         t = mark("stats+cullpts", t)
         if m.n_keyframes() >= 2:
-            self._create_new_points(kf)
-            t = mark("triangulate", t)
-            self._fuse(kf)
-            t = mark("fuse", t)
-            self._local_ba(kf)
+            if overlap_results:
+                rec_t = self._dispatch_new_points(kf)
+                rec_f = self._dispatch_fuse(kf)
+                t = mark("dispatch", t)
+                for rec in (rec_t, rec_f):
+                    if rec is not None:
+                        rec["ready"].wait()
+                t = mark("wait", t)
+                if rec_t is not None:
+                    with self.lock:
+                        self._fold_new_points(rec_t)
+                t = mark("triangulate", t)
+                with self.lock:
+                    if rec_f is not None:
+                        self._fold_fuse(rec_f)
+                    self.in_sparse_phase = False
+                    self._n_events += 1
+                    self.fresh_event = self._n_events
+                t = mark("fuse", t)
+            else:
+                with self.lock:
+                    rec = self._dispatch_new_points(kf)
+                    if rec is not None:
+                        self._fold_new_points(rec)
+                    t = mark("triangulate", t)
+                    rec = self._dispatch_fuse(kf)
+                    if rec is not None:
+                        self._fold_fuse(rec)
+                    self.in_sparse_phase = False
+                    t = mark("fuse", t)
+            self._local_ba(kf, defer=defer_ba)
             t = mark("local_ba", t)
-        self._cull_keyframes(kf)
+        self.in_sparse_phase = False
+        with self.lock:
+            self._cull_keyframes(kf)
         mark("cullkfs", t)
+        perfcount.event("map_event_end", kf=int(kf))
 
     # ------------------------------------------------------------------
-    def _fuse(self, kf: int):
+    def _dispatch_fuse(self, kf: int):
         """Reference SearchInNeighbors (LocalMapping.cc:475-555): project the
         new keyframe's points into its first- and second-order covisible
-        neighbours and theirs into it; add missing observations, merge
-        duplicate points (keeping the better-observed one)."""
+        neighbours and theirs into it (one K2 launch per target and
+        direction). Returns a pending record for _fold_fuse, or None."""
         m = self.map
         first, _ = m.covisible_keyframes(kf, min_weight=15, max_n=20)
         targets = []
@@ -263,7 +431,7 @@ class LocalMapper:
             targets.extend(int(x) for x in second)
         targets = [t for t in dict.fromkeys(targets) if t != kf and m.kf_valid[t]]
         if not targets:
-            return
+            return None
         targets = targets[:_pad_sched(len(targets), self.FUSE_T_SCHEDULE)]
         n_t = len(targets)
         n = m.n_feat
@@ -284,14 +452,15 @@ class LocalMapper:
         for ti, t in enumerate(targets):
             dm = m.kf_matches[t]
             has_t[ti, dm[dm >= 0]] = True
-        ia = va = idx_a = None
+        outs = []
+        idx_a = None
         if len(pt_ids):
             idx_a = np.zeros(n, np.int64)
             idx_a[: len(pt_ids)] = pt_ids
             valid_t = np.zeros((n_t, n), bool)
             valid_t[:, : len(pt_ids)] = ~has_t[:, pt_ids]
             ga = mirror.gather(idx_a)
-            ia, va = frame_ops.fuse_points_into_targets(
+            outs += frame_ops.fuse_points_into_targets(
                 *ga[:7], torch.from_numpy(valid_t).to(dev), poses,
                 [r["uv"] for r in rows], [r["bits"] for r in rows], [r["size"] for r in rows],
                 [r["valid"] for r in rows], *self.intrinsics, bounds_lo, bounds_hi, 3.0,
@@ -309,14 +478,33 @@ class LocalMapper:
             idx_b[ti, : len(pts)] = pts
             valid_b[ti, : len(pts)] = True
         gb = mirror.gather(idx_b)
-        ib, vb = frame_ops.fuse_target_points_into_kf(
+        outs += frame_ops.fuse_target_points_into_kf(
             *gb[:7], torch.from_numpy(valid_b).to(dev), torch.from_numpy(m.kf_pose[kf]).to(dev),
             kf_d["uv"], kf_d["bits"], kf_d["size"], kf_d["valid"], *self.intrinsics,
             bounds_lo, bounds_hi, 3.0, self.match_th, f_words=kf_d["words"])
-        if ia is not None:
-            ia, va = ia.cpu().numpy(), va.cpu().numpy()
-        ib, vb = ib.cpu().numpy(), vb.cpu().numpy()
+        return dict(kf=kf, kf_uid=int(m.kf_uid[kf]), targets=targets,
+                    target_uids=[int(m.kf_uid[t]) for t in targets], idx_a=idx_a, idx_b=idx_b,
+                    ready=streams.Ready(outs))
 
+    def _fold_fuse(self, rec):
+        """Apply a fusion result: add missing observations, merge duplicate
+        points (keeping the better-observed one). The keyframe and each
+        target are re-validated by uid, proposed points by validity (the
+        map may have changed since the dispatch)."""
+        m = self.map
+        kf = rec["kf"]
+        if not m.kf_valid[kf] or int(m.kf_uid[kf]) != rec["kf_uid"]:
+            return
+        fetched = rec["ready"].host()
+        if rec["idx_a"] is not None:
+            ia, va, ib, vb = fetched
+        else:
+            ib, vb = fetched
+        targets = rec["targets"]
+        n_t = len(targets)
+        tgt_ok = [m.kf_valid[t] and int(m.kf_uid[t]) == u
+                  for t, u in zip(targets, rec["target_uids"])]
+        idx_a, idx_b = rec["idx_a"], rec["idx_b"]
         counts = m.point_observation_counts()
         merge_pairs = []
 
@@ -336,14 +524,18 @@ class LocalMapper:
             else:
                 m.kf_matches[dst_kf][slot] = pt
 
-        if ia is not None:
+        if idx_a is not None:
             for ti in range(n_t):
+                if not tgt_ok[ti]:
+                    continue
                 for s in np.nonzero(va[ti])[0]:
                     fuse_one(targets[ti], int(idx_a[s]), int(ia[ti, s]))
         # two targets can propose the same point for this keyframe (one
         # pre-fuse snapshot); it lands on the first slot only
         kf_gained = set()
         for ti in range(n_t):
+            if not tgt_ok[ti]:
+                continue
             for s in np.nonzero(vb[ti])[0]:
                 pt = int(idx_b[ti, s])
                 if pt in kf_gained:
@@ -387,18 +579,17 @@ class LocalMapper:
             self.recent.pop(pt, None)
 
     # ------------------------------------------------------------------
-    def _create_new_points(self, kf: int):
+    def _dispatch_new_points(self, kf: int):
         """Reference CreateNewMapPoints (LocalMapping.cc:231-473) against up
-        to 20 covisible neighbours (frame_ops.triangulate_with_neighbors);
-        a current-keyframe slot goes to the first (best-covisible)
-        neighbour whose match passed every gate."""
+        to 20 covisible neighbours (frame_ops.triangulate_with_neighbors).
+        Returns a pending record for _fold_new_points, or None."""
         m = self.map
         neighbors, _ = m.covisible_keyframes(kf, min_weight=15, max_n=20)
         neighbors = [int(x) for x in neighbors]
         if not neighbors:
             others = [int(k) for k in m.keyframe_ids() if k != kf]
             if not others:
-                return
+                return None
             neighbors = [others[-1]]
         t1 = m.kf_pose[kf]
         c1 = -t1[:3, :3].T @ t1[:3, 3]
@@ -410,7 +601,7 @@ class LocalMapper:
             if med > 0 and float(np.linalg.norm(c2 - c1)) / med >= MIN_BASELINE_DEPTH_RATIO:
                 keep.append(kf2)
         if not keep:
-            return
+            return None
         keep = keep[:_pad_sched(len(keep), self.TRI_T_SCHEDULE)]
         dev = self.device
         t_arr = np.asarray(keep, np.int64)
@@ -418,22 +609,36 @@ class LocalMapper:
         unmatched2 = (m.kf_matches[t_arr] < 0) & m.kf_feat_valid[t_arr]
         rows = [self.kf_dev(t) for t in keep]
         kf_d = self.kf_dev(kf)
-        idx2, pts, good = frame_ops.triangulate_with_neighbors(
+        out = frame_ops.triangulate_with_neighbors(
             kf_d["bits"], kf_d["uv"], torch.from_numpy(unmatched1).to(dev), kf_d["inv_sigma2"],
             kf_d["size"], [r["bits"] for r in rows], [r["uv"] for r in rows],
             list(torch.from_numpy(unmatched2).to(dev)), [r["size"] for r in rows],
             [r["inv_sigma2"] for r in rows], torch.from_numpy(t1).to(dev),
             torch.from_numpy(m.kf_pose[t_arr]).to(dev), torch.from_numpy(self.k).to(dev),
             self.match_th, TRI_RATIO)
-        idx2, pts, good = idx2.cpu().numpy(), pts.cpu().numpy(), good.cpu().numpy()
+        return dict(kf=kf, kf_uid=int(m.kf_uid[kf]), targets=keep,
+                    target_uids=[int(m.kf_uid[t]) for t in keep], ready=streams.Ready(out))
 
-        good = good & (m.kf_matches[kf] < 0)[None, :]
+    def _fold_new_points(self, rec):
+        """Apply a triangulation result: create the accepted points and
+        their two observations; a current-keyframe slot goes to the first
+        (best-covisible) neighbour whose match passed every gate. The
+        keyframe and each neighbour are re-validated by uid, and slots are
+        claimed only if still unmatched on both sides."""
+        m = self.map
+        kf = rec["kf"]
+        if not m.kf_valid[kf] or int(m.kf_uid[kf]) != rec["kf_uid"]:
+            return
+        idx2, pts, good = rec["ready"].host()
+        col_ok = np.array([bool(m.kf_valid[t]) and int(m.kf_uid[t]) == u
+                           for t, u in zip(rec["targets"], rec["target_uids"])])
+        good = good & col_ok[:, None] & (m.kf_matches[kf] < 0)[None, :]
         slots1 = np.nonzero(good.any(axis=0))[0]
         if len(slots1) == 0:
             return
         first_t = np.argmax(good[:, slots1], axis=0)  # covisibility order
         slots2 = idx2[first_t, slots1]
-        tgt = t_arr[first_t]
+        tgt = np.asarray(rec["targets"], np.int64)[first_t]
         free2 = m.kf_matches[tgt, slots2] < 0
         slots1, slots2, tgt, first_t = slots1[free2], slots2[free2], tgt[free2], first_t[free2]
         if len(slots1) == 0:
@@ -457,39 +662,47 @@ class LocalMapper:
         return float(np.median(pc[:, 2]))
 
     # ------------------------------------------------------------------
-    def _local_ba(self, kf: int):
+    def _local_ba(self, kf: int, defer: bool = False):
         """Reference LocalBundleAdjustment structure (Optimizer.cc:450-768):
         the keyframe and its covisible keyframes free; keyframes observing
-        local points but not covisible fixed."""
+        local points but not covisible fixed. defer: the solve is issued on
+        the mapping stream and parked as the pending fold."""
         m = self.map
-        cov, _ = m.covisible_keyframes(kf, min_weight=1, max_n=self.max_ba_kfs - 1)
-        free = [kf] + [int(c) for c in cov]
-        pt_ids = set()
-        for k in free:
-            mm = m.kf_matches[k]
-            pt_ids.update(mm[mm >= 0].tolist())
-        if not pt_ids:
-            return
-        pt_mask = np.zeros(m.max_pt, bool)
-        pt_mask[list(pt_ids)] = True
-        fixed = []
-        for other in m.keyframe_ids():
-            if other in free:
-                continue
-            mm = m.kf_matches[other]
-            if pt_mask[mm[mm >= 0]].any():
-                fixed.append(int(other))
+        with self.lock:
+            cov, _ = m.covisible_keyframes(kf, min_weight=1, max_n=self.max_ba_kfs - 1)
+            free = [kf] + [int(c) for c in cov]
+            pt_ids = set()
+            for k in free:
+                mm = m.kf_matches[k]
+                pt_ids.update(mm[mm >= 0].tolist())
+            if not pt_ids:
+                return
+            pt_mask = np.zeros(m.max_pt, bool)
+            pt_mask[list(pt_ids)] = True
+            fixed = []
+            for other in m.keyframe_ids():
+                if other in free:
+                    continue
+                mm = m.kf_matches[other]
+                if pt_mask[mm[mm >= 0]].any():
+                    fixed.append(int(other))
         # gauge: if nothing is fixed, fix the oldest free keyframe
         if not fixed and len(free) > 1:
             oldest = min(free)
             free.remove(oldest)
             fixed = [oldest]
         t0 = time.perf_counter()
-        info = run_bundle_adjustment(m, self.intrinsics, free, fixed, sorted(pt_ids),
-                                     device=self.device)
-        if info is not None:
-            info["ms"] = (time.perf_counter() - t0) * 1e3
-            self.ba_log.append(info)
+        res = run_bundle_adjustment(m, self.intrinsics, free, fixed, sorted(pt_ids),
+                                    device=self.device, defer=defer, stream=self.stream,
+                                    lock=self.lock)
+        if res is None:
+            return
+        info = res.info if defer else res
+        info["ms"] = (time.perf_counter() - t0) * 1e3
+        info["deferred"] = defer
+        self.ba_log.append(info)
+        if defer:
+            self._pending_fold = res
 
     # ------------------------------------------------------------------
     def _cull_keyframes(self, kf: int):

@@ -1,5 +1,5 @@
 """Loop closing: detection, Sim3 computation, loop correction and global
-BA, synchronous (port of anyfeature_vslam_tpu/slam/loop_closing.py).
+BA (port of anyfeature_vslam_tpu/slam/loop_closing.py).
 
 The counterpart of the reference LoopClosing thread (reference
 src/LoopClosing.cc:64-763), run inside the keyframe event:
@@ -12,20 +12,29 @@ src/LoopClosing.cc:64-763), run inside the keyframe event:
   - CorrectLoop (:418-599): the corrected Sim3 propagated to the current
     keyframe's covisible group, their points moved, the matched loop
     points fused, SearchAndFuse, the essential graph (ops/pose_graph.py),
-    the loop edge, then global BA, run to its end inside the event.
+    the loop edge, then global BA: run to its end inside the event, or
+    issued on the mapping stream and handed to ``defer_ba_sink`` (the
+    System parks it as the local mapper's pending fold); its fold corrects
+    the keyframes and points created during the solve through the
+    spanning tree (``_propagate_gba``, reference
+    src/LoopClosing.cc:683-744).
 The spanning tree is the maintained parent links plus strong covisibility
 edges (weight >= 100, reference Optimizer.cc:46).
 
 On the card every search is a K2 launch: the global descriptor match of
 each Sim3 candidate, both directions of SearchBySim3, the projection gate
 and SearchAndFuse's projection into each corrected keyframe. The map stays
-host numpy; point rows come from the device mirror. The JAX package's
-threaded forms (the BoW folded one keyframe late, the deferred global BA
-with its spanning-tree propagation) are ROADMAP.md queue item 8.
+host numpy; point rows come from the device mirror. In threaded mode the
+keyframe's BoW is issued at its event and folded (database insert and
+detection) at the next one (``deferred_bow``, ``flush_bow``); detection
+and the Sim3 run without the map lock, which is held around ``pre_mutate``
+and the correction. A Sim3 computed without the lock is applied only if
+both keyframes are still the ones it was computed for.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -75,7 +84,7 @@ class LoopCloser:
     keyframe's features are uploaded from the map when searched."""
 
     def __init__(self, slam_map, cam, database, match_th: float = 75.0, seed: int = 0,
-                 device="cuda", kf_dev=None):
+                 device="cuda", kf_dev=None, lock=None):
         self.map = slam_map
         self.intrinsics = tuple(float(getattr(cam, k)) for k in ("fx", "fy", "cx", "cy"))
         self.width, self.height = int(cam.width), int(cam.height)
@@ -96,6 +105,16 @@ class LoopCloser:
         # poses it started from ("kf_pose_in").
         self.stage_times: dict[str, list] = {}
         self.gba_log: list[dict] = []
+        # the System's map lock (a private one otherwise): held around
+        # pre_mutate and the correction only
+        self.lock = lock if lock is not None else threading.RLock()
+        # threaded mode: BoW issued at a keyframe's event, folded at the next
+        self.deferred_bow = False
+        self._pending_bow = None
+        # when set, the global BA is issued (on `stream`) and its fold handed
+        # to this sink instead of being waited on
+        self.defer_ba_sink = None
+        self.stream = None
 
     def _mark(self, name, t0):
         t1 = time.perf_counter()
@@ -116,32 +135,82 @@ class LoopCloser:
                     angle=self._to_dev(m.kf_angle[kf]))
 
     # ------------------------------------------------------------------
-    def process_keyframe(self, kf: int) -> bool:
+    def process_keyframe(self, kf: int, pre_mutate=None) -> bool:
         """Detection at a new keyframe, and the correction when a candidate
-        passes every gate. The keyframe's bow is computed once and shared
-        by detection and the database insert. Returns True if a loop was
-        closed."""
+        passes every gate. Returns True if a loop was closed. pre_mutate:
+        called under the lock before the first Sim3 reads poses and points
+        (lands a deferred local-BA fold; the reference stops local mapping
+        before CorrectLoop, src/LoopClosing.cc:424-445).
+
+        With deferred_bow the keyframe's BoW is issued here and folded at
+        the next call, which then runs the previous keyframe's detection
+        (one keyframe of latency, the reference's LoopClosing queue's
+        class, src/LoopClosing.cc:106-111). Otherwise the BoW is computed
+        once and shared by detection and the database insert."""
+        if self.deferred_bow:
+            closed = False
+            prev, self._pending_bow = self._pending_bow, None
+            if prev is not None:
+                pkf, puid, ready = prev
+                if self.map.kf_valid[pkf] and int(self.map.kf_uid[pkf]) == puid:
+                    closed = self._process_with_bow(
+                        pkf, self.db.bow_from_words(ready.host()[0]), pre_mutate)
+            t = time.perf_counter()
+            self._pending_bow = (kf, int(self.map.kf_uid[kf]), self.db.dispatch_bow(*self._bits(kf)))
+            self._mark("bow", t)
+            return closed
         t = time.perf_counter()
+        bow = self.db.compute_bow(*self._bits(kf))
+        self._mark("bow", t)
+        return self._process_with_bow(kf, bow, pre_mutate)
+
+    def _bits(self, kf: int):
+        """The keyframe's descriptors and validity (device tensors when the
+        keyframe cache is wired)."""
         if self.kf_dev is not None:
             f = self.kf_dev(kf)
-            bow = self.db.compute_bow(f["bits"], f["valid"])
-        else:
-            bow = self.db.compute_bow(self.map.kf_desc_bits[kf], self.map.kf_feat_valid[kf])
-        self._mark("bow", t)
+            return f["bits"], f["valid"]
+        return self.map.kf_desc_bits[kf], self.map.kf_feat_valid[kf]
+
+    def flush_bow(self):
+        """Land a deferred BoW (the database insert only, no detection) so a
+        shutdown or a checkpoint leaves the database complete."""
+        prev, self._pending_bow = self._pending_bow, None
+        if prev is not None:
+            pkf, puid, ready = prev
+            if self.map.kf_valid[pkf] and int(self.map.kf_uid[pkf]) == puid:
+                self.db.add(pkf, bow=self.db.bow_from_words(ready.host()[0]))
+
+    def _process_with_bow(self, kf: int, bow, pre_mutate=None) -> bool:
+        m = self.map
         closed = False
-        uid = int(self.map.kf_uid[kf])
+        uid = int(m.kf_uid[kf])
         # >= 10 keyframes since the last closure (reference
         # LoopClosing.cc:128), by stable uid (slots recycle)
-        if self.map.n_keyframes() > 10 and uid - self.last_loop_kf > 10:
+        if m.n_keyframes() > 10 and uid - self.last_loop_kf > 10:
             t = time.perf_counter()
             candidates = self._detect_loop(kf, bow)
             self._mark("detect", t)
+            if candidates and pre_mutate is not None:
+                with self.lock:
+                    pre_mutate()
             for cand in candidates:
+                cand_uid = int(m.kf_uid[cand])
                 t = time.perf_counter()
                 ok, r, tr, s = self._compute_sim3(kf, cand)
                 self._mark("sim3", t)
                 if ok:
-                    self._correct_loop(kf, cand, r, tr, s)
+                    # a correction stops the world (LoopClosing.cc:424-445);
+                    # the Sim3 was computed without the lock, so it applies
+                    # only to the keyframes it was computed for
+                    with self.lock:
+                        still = (m.kf_valid[kf] and int(m.kf_uid[kf]) == uid
+                                 and m.kf_valid[cand] and int(m.kf_uid[cand]) == cand_uid)
+                        if still:
+                            self._correct_loop(kf, cand, r, tr, s)
+                    if not still:
+                        self._pending_merge = self._loop_points = None
+                        break
                     self.last_loop_kf = uid
                     self.n_loops_closed += 1
                     closed = True
@@ -423,20 +492,95 @@ class LoopCloser:
         m.loop_edges.append((int(m.kf_uid[kf]), int(m.kf_uid[cand])))
         t0 = self._mark("essential_graph", t0)
         # global BA over every keyframe, the oldest fixed (reference
-        # RunGlobalBundleAdjustment, run here to its end)
+        # RunGlobalBundleAdjustment); with a sink, issued and folded later
         kf_ids = [int(k) for k in m.keyframe_ids()]
         fixed = [min(kf_ids)]
         free = [k for k in kf_ids if k not in fixed]
         pose_in = m.kf_pose.copy()
-        info = run_bundle_adjustment(m, self.intrinsics, free, fixed, np.nonzero(m.pt_valid)[0],
-                                     n_iters_a=5, n_iters_b=10, device=self.device)
-        m.update_point_stats()
-        m.inform_big_change()
+        pt_ids = np.nonzero(m.pt_valid)[0]
+        defer = self.defer_ba_sink is not None
+        res = run_bundle_adjustment(m, self.intrinsics, free, fixed, pt_ids, n_iters_a=5,
+                                    n_iters_b=10, device=self.device, defer=defer,
+                                    stream=self.stream)
+        if defer and res is not None:
+            # solve membership by identity: the fold tells keyframes and
+            # points created during the solve apart from its members
+            uid_in_solve = {int(m.kf_uid[k]) for k in kf_ids}
+            pt_in_solve = np.zeros(m.max_pt, bool)
+            pt_in_solve[pt_ids] = True
+
+            def gba_fold(f=res):
+                pre_poses = m.kf_pose.copy()
+                f()
+                self._propagate_gba(uid_in_solve, pt_in_solve, pre_poses)
+                m.update_point_stats()
+                m.inform_big_change()
+
+            gba_fold.ready = res.ready
+            info = res.info
+            self.defer_ba_sink(gba_fold)
+        else:
+            info = res
+            m.update_point_stats()
+            m.inform_big_change()
         t1 = self._mark("global_ba", t0)
         if info is not None:
             info["ms"] = (t1 - t0) * 1e3
+            info["deferred"] = defer
             info["kf_pose_in"] = pose_in
             self.gba_log.append(info)
+
+    def _propagate_gba(self, uid_in_solve: set, pt_in_solve, pre_poses):
+        """Correct the keyframes and points created while the deferred
+        global BA ran (reference RunGlobalBundleAdjustment propagation,
+        src/LoopClosing.cc:683-744): keyframes walk the spanning tree from
+        their corrected parents, Tcw_child = (Tcw_child_old Tcw_parent_old^-1)
+        Tcw_parent_new; points outside the solve follow their reference
+        keyframe, p' = T_ref_new^-1 (T_ref_old (p)). pre_poses: every
+        keyframe's pose just before the fold wrote the solve's results."""
+        m = self.map
+        pending = {int(s) for s in m.keyframe_ids() if int(m.kf_uid[s]) not in uid_in_solve}
+        # children of corrected keyframes first (keyframe culling can give a
+        # child a parent of larger uid, so uid order alone is not enough)
+        progress = True
+        while pending and progress:
+            progress = False
+            for s in sorted(pending, key=lambda x: int(m.kf_uid[x])):
+                p = int(m.kf_parent[s])
+                if p < 0 or not m.kf_valid[p] or p == s:
+                    pending.discard(s)  # rootless: nothing to anchor to
+                    progress = True
+                    break
+                if p in pending:
+                    continue  # parent not corrected yet
+                t_rel = pre_poses[s] @ np.linalg.inv(pre_poses[p])
+                m.kf_pose[s] = (t_rel @ m.kf_pose[p]).astype(np.float32)
+                pending.discard(s)
+                progress = True
+                break
+        # parent cycles among mid-solve keyframes: uid order
+        for s in sorted(pending, key=lambda x: int(m.kf_uid[x])):
+            p = int(m.kf_parent[s])
+            if p < 0 or not m.kf_valid[p] or p == s:
+                continue
+            t_rel = pre_poses[s] @ np.linalg.inv(pre_poses[p])
+            m.kf_pose[s] = (t_rel @ m.kf_pose[p]).astype(np.float32)
+        # mid-solve points: valid now, absent from the solve
+        is_new = m.pt_valid.copy()
+        k = min(len(is_new), len(pt_in_solve))
+        is_new[:k] &= ~pt_in_solve[:k]
+        ids = np.nonzero(is_new)[0]
+        if len(ids) == 0:
+            return
+        refs = m.pt_ref_kf[ids]
+        ok = (refs >= 0) & m.kf_valid[np.maximum(refs, 0)]
+        ids, refs = ids[ok], refs[ok]
+        for r in np.unique(refs):
+            sel = ids[refs == r]
+            t_old, t_new = pre_poses[r], m.kf_pose[r]
+            x_cam = m.pt_pos[sel] @ t_old[:3, :3].T + t_old[:3, 3]
+            m.pt_pos[sel] = ((x_cam - t_new[:3, 3]) @ t_new[:3, :3]).astype(np.float32)
+            m.mark_points_dirty(sel)
 
     def _search_and_fuse(self, corrected: dict):
         """Project every loop-side point into each corrected keyframe

@@ -1,5 +1,5 @@
 """Tracking: the per-frame state machine (port of
-anyfeature_vslam_tpu/slam/tracking.py, synchronous monocular path).
+anyfeature_vslam_tpu/slam/tracking.py, monocular).
 
 The counterpart of the reference Tracking thread (reference
 src/Tracking.cc): NOT_INITIALIZED -> OK -> LOST, with two-view
@@ -8,9 +8,18 @@ search, reference-keyframe fallback, local-map search, pose LMs), the
 staged per-stage path for the frame after initialization, and the
 monocular keyframe decision (Tracking.cc:838-922).
 
-Frames are processed in order, each to its end (the JAX package's
-``pipeline_depth=0``): the pipelined dispatch/retire tracker is ROADMAP
-queue item 8. A LOST frame relocalizes against the keyframe database
+With ``pipeline_depth=0`` each frame is tracked to its end. With a depth
+d > 0 (the threaded System's default, 2) a tracked frame's fused step is
+dispatched (``_fast_dispatch``: issued, its small outputs copied toward
+the host behind a ``streams.Ready`` probe, the device chain carrying the
+carry and the pose prediction to the next dispatch) and retired d frames
+later (``_fast_retire``: bookkeeping, velocity, trajectory and the keyframe
+decision); a retired failure replays the frame and its successors through
+the sequential state machine (``_handle_fast_failure``). The keyframe
+decision's c1b asks ``mapping_idle``, and a wanted keyframe while mapping
+is busy calls ``interrupt_mapping`` (reference Tracking.cc:870-876,
+905-918); keyframe minting and relocalization hold ``map_lock``. A LOST
+frame relocalizes against the keyframe database
 (``database``, set by the System with its vocabulary; without one it stays
 LOST): BoW candidates, one K2 search per candidate, batched RANSAC-EPnP,
 pose LM, projection add-match rounds and the local map (reference
@@ -20,14 +29,16 @@ tracker's device; the map and bookkeeping are numpy on the host.
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from enum import Enum
 
 import numpy as np
 import torch
 
-from .. import perfcount
+from .. import perfcount, streams
 from ..frontend.extractor import ExtractorConfig, OrbExtractor
 from ..ops import camera as cam_ops
 from ..ops import initializer, pnp, pose_opt
@@ -77,6 +88,12 @@ class TrackingConfig:
 
 def _host(t):
     return t.cpu().numpy()
+
+
+def image_uint8(img: np.ndarray) -> np.ndarray:
+    """A host image as the tracker takes it: uint8, other dtypes clipped to
+    [0, 255]."""
+    return img if img.dtype == np.uint8 else np.clip(img, 0, 255).astype(np.uint8)
 
 
 class DeviceFeats(dict):
@@ -173,9 +190,15 @@ class Tracker:
         self._k = camera.k_matrix
         self.velocity = None          # T_cur_last
         self._fast_state = None
-        # the last fused step's device outputs (carry + pose), chained to
-        # the next frame
+        # the last dispatched fused step's device outputs (carry, pose and
+        # the pose before it), chained to the next dispatch
         self._chain = None
+        # pipelined tracking: frames dispatched and not yet retired
+        self.pipeline_depth = 0
+        self._inflight: deque = deque()
+        self._draining = False
+        self._fs_built_fid = -(10 ** 9)
+        self._weak_streak = 0
         self.last: FrameData | None = None
         self.init_ref: FrameData | None = None
         self.ref_kf: int = -1
@@ -189,6 +212,16 @@ class Tracker:
         self.on_reset = None          # callback() after a map reset
         self.kf_dev = None            # keyframe -> its feature tensors
         self.database = None          # KeyFrameDatabase (relocalization)
+        # the System's hooks into mapping: c1b's idle probe, the interrupt
+        # of a running solve, "not mid-event in the sparse phase", and the
+        # fresh-event token (check returns it, clear(token) clears it only
+        # if no newer event has landed since)
+        self.mapping_idle = lambda: True
+        self.interrupt_mapping = lambda: None
+        self.snapshot_safe = lambda: True
+        self.map_fresh_check = lambda: 0
+        self.map_fresh_clear = lambda token: None
+        self.map_lock = threading.RLock()
         self.stats = dict(tracked_frames=0, lost_frames=0, resets=0, relocalizations=0)
 
     def _to_dev(self, a):
@@ -198,8 +231,7 @@ class Tracker:
         """(H, W) image -> uint8 tensor on the device."""
         if isinstance(img, torch.Tensor):
             return img.to(self.device)
-        img8 = img if img.dtype == np.uint8 else np.clip(img, 0, 255).astype(np.uint8)
-        return self._to_dev(img8)
+        return self._to_dev(image_uint8(img))
 
     # ------------------------------------------------------------ frontend
     def _extract(self, img, init: bool) -> DeviceFeats:
@@ -213,6 +245,21 @@ class Tracker:
         fid = self.frame_id
         self.frame_id += 1
         # a tracked frame's extraction runs inside the fused step
+        defer_extract = self.state == TrackState.OK
+        if self.pipeline_depth > 0 and defer_extract and not self._draining:
+            # pipelined: dispatch this frame, retire the one that fell out
+            # of the window
+            rec = self._fast_dispatch(FrameData(fid, ts, None), img)
+            if rec is not None:
+                self._inflight.append(rec)
+                while len(self._inflight) > self.pipeline_depth:
+                    rec0 = self._inflight.popleft()
+                    if not self._fast_retire(rec0, pipelined=True):
+                        self._handle_fast_failure(rec0["frame"])
+                        break
+                return self.state
+            # no usable chain or snapshot: the sequential path
+        self.flush_pipeline()
         defer_extract = self.state == TrackState.OK
         feats = None if defer_extract else self._extract(
             img, init=self.state == TrackState.NOT_INITIALIZED)
@@ -251,19 +298,52 @@ class Tracker:
         self.stats["tracked_frames"] += 1
         frame.finished = True
 
+    # ---------------------------------------------------------- pipeline
+    def flush_pipeline(self):
+        """Retire every in-flight frame, oldest first; a failure replays the
+        rest through the state machine."""
+        while self._inflight:
+            rec = self._inflight.popleft()
+            if not self._fast_retire(rec, pipelined=True):
+                self._handle_fast_failure(rec["frame"])
+                break
+
+    def _handle_fast_failure(self, frame: FrameData):
+        """A retired frame failed its speculative fused step: replay it and
+        its (now stale) successors through the sequential state machine in
+        order, with a fresh chain and a snapshot refresh through the gated
+        path. The weak-frame streak is kept, so the budget of 3 weak frames
+        holds across replays."""
+        self._chain = None
+        if self._fast_state is not None:
+            self._fast_state["rev"] = -(10 ** 9)
+        perfcount.bump("fast_failures")
+        perfcount.event("fast_failure", fid=frame.frame_id, n_pending=1 + len(self._inflight))
+        pending = [frame] + [rec["frame"] for rec in self._inflight]
+        self._inflight.clear()
+        self._draining = True
+        try:
+            for f in pending:
+                f.pose = None
+                f.matches = None
+                self._run_state_machine(f, None)
+        finally:
+            self._draining = False
+
     def _reset(self):
         m = self.map
-        m.__init__(m.max_kf, m.max_pt, m.n_feat, m.desc_dim, m.desc_dtype, m.device)
-        self.state = TrackState.NOT_INITIALIZED
-        self.velocity = None
-        self.last = None
-        self.init_ref = None
-        self.ref_kf = -1
-        self._fast_state = None
-        self._chain = None
-        self.stats["resets"] += 1
-        if self.on_reset is not None:
-            self.on_reset()
+        with self.map_lock:
+            m.__init__(m.max_kf, m.max_pt, m.n_feat, m.desc_dim, m.desc_dtype, m.device)
+            self.state = TrackState.NOT_INITIALIZED
+            self.velocity = None
+            self.last = None
+            self.init_ref = None
+            self.ref_kf = -1
+            self._fast_state = None
+            self._chain = None
+            self.stats["resets"] += 1
+            if self.on_reset is not None:
+                self.on_reset()
 
     # ---------------------------------------------------- initialization
     def _monocular_initialization(self, frame: FrameData):
@@ -393,17 +473,19 @@ class Tracker:
         matches[sel] = np.where(m.pt_valid[ids], ids, -1)
 
     def _track(self, frame: FrameData, img=None) -> bool:
+        cfg = self.cfg
         if self.last is not None and self.last.matches is not None:
             self._resolve_stale_matches(self.last.matches)
         fast = self._try_fast_track(frame, img)
-        if fast is not None and not fast:
-            return False  # the fused step's failure is authoritative
-        if fast is None:
-            # the fused step does not apply (the frame after
-            # initialization carries the 2x init extraction): the staged
-            # path, motion -> ref-KF -> local map (reference Track()
-            # :293-316)
-            frame.feats = self._extract(img, init=False)
+        if fast is not None and not fast and not self._draining and self.pipeline_depth == 0:
+            return False  # sequential: the fused step's failure is authoritative
+        if fast is None or not fast:
+            # the fused step does not apply (the frame after initialization
+            # carries the 2x init extraction) or its speculative snapshot
+            # failed in a replay: the staged path, motion -> ref-KF -> local
+            # map (reference Track() :293-316)
+            if frame.feats is None:
+                frame.feats = self._extract(img, init=False)
             frame.pose = None
             frame.matches = None
             ok = False
@@ -413,6 +495,16 @@ class Tracker:
                 ok = self._track_reference_kf(frame)
             if ok:
                 ok = self._track_local_map(frame)
+                if (not ok and self.pipeline_depth > 0 and frame.pose is not None
+                        and self.n_inliers >= max(cfg.kf_min_inliers + 3, 18)
+                        and self._weak_streak < 3):
+                    # the pipelined retire's hysteresis band (see _fast_retire)
+                    self._weak_streak += 1
+                    perfcount.bump("weak_frames")
+                    ok = True
+                elif ok:
+                    self._weak_streak = 0
+            perfcount.bump("staged_frames")
             if not ok:
                 return False
         # velocity update (reference Tracking.cc:340-350)
@@ -546,14 +638,32 @@ class Tracker:
 
     # ----------------------------------------------------- fused fast path
     def _try_fast_track(self, frame: FrameData, img):
-        """The tracked frame in one fused step. Returns True / False (the
-        tracking outcome) or None when the fused step does not apply."""
+        """The tracked frame in one fused step, dispatched and retired at
+        once. Returns True / False (the tracking outcome) or None when the
+        fused step does not apply."""
+        rec = self._fast_dispatch(frame, img)
+        if rec is None:
+            return None
+        return self._fast_retire(rec, pipelined=False)
+
+    def _fast_dispatch(self, frame: FrameData, img=None):
+        """Issue the fused step for `frame` (extraction included when its
+        features are not there yet) and start the copies of its small
+        outputs to the host. Returns an in-flight record for _fast_retire,
+        or None when the fused step does not apply. The device chain (the
+        last dispatch's carry and its two last poses) lets a dispatch run
+        before its predecessor has been retired: the constant-velocity
+        prediction runs on the device (fast_track.predict_pose)."""
         cfg = self.cfg
+        if not (isinstance(frame.feats, DeviceFeats) or (frame.feats is None and img is not None)):
+            return None
         m = self.map
+        fs_rebuilt = False
         chain = self._chain
         if chain is not None and chain["fid"] != frame.frame_id - 1:
             chain = None  # a slow or lost frame broke the chain
         if chain is None:
+            # seed from the last retired frame's host truth
             last = self.last
             if (last is None or last.pose is None or last.matches is None
                     or not isinstance(last.feats, DeviceFeats)
@@ -561,33 +671,75 @@ class Tracker:
                     or int(last.feats.dev("uv_und").shape[0]) != m.n_feat):
                 return None
             chain = dict(fid=last.frame_id, carry=self._build_fast_carry(),
-                         pose=self._to_dev(last.pose.astype(np.float32)))
+                         pose=self._to_dev(last.pose.astype(np.float32)), prev=None)
         fs = self._fast_state
         if fs is None or fs["rev"] != m.rev:
-            # the map changed (a keyframe event): rebuild the device
-            # snapshot, and re-anchor the chain on the host's refined state
-            fs = self._fast_state = self._build_fast_state()
-            if fs is None:
-                return None
-            if self.last is not None and self.last.frame_id == chain["fid"]:
-                chain = dict(fid=self.last.frame_id, carry=self._build_fast_carry(),
-                             pose=self._to_dev(self.last.pose.astype(np.float32)))
+            # refresh the snapshot when the map changed, preferably at an
+            # event boundary: mid-event the map is sparse (recent points
+            # culled, the event's new points not yet folded)
+            age = frame.frame_id - self._fs_built_fid
+            if self.pipeline_depth > 0:
+                # one eager rebuild right after an event's folds landed, and
+                # rate-limited idle or decay rebuilds
+                fresh = bool(self.map_fresh_check()) and self.snapshot_safe()
+                need = fs is None or (age >= 2 and fresh) or (
+                    age >= 3 and (self.mapping_idle() or (
+                        self.snapshot_safe() and (self.n_inliers < 45 or age >= 10))))
+            else:
+                # sequential: rebuild whenever mapping is parked
+                need = fs is None or self.mapping_idle()
+            if need:
+                fs = self._rebuild_snapshot(frame.frame_id)
+                fs_rebuilt = True
+                if fs is None:
+                    return None
+        if fs_rebuilt and self.last is not None and self.last.frame_id == chain["fid"]:
+            # re-anchor the chain on the host's refined state
+            chain = dict(fid=self.last.frame_id, carry=self._build_fast_carry(),
+                         pose=self._to_dev(self.last.pose.astype(np.float32)), prev=None)
         reloc_ok = frame.frame_id >= self.last_reloc_frame_id + 2
-        if self.last is not None and self.last.pose is not None \
-                and self.last.frame_id == chain["fid"]:
-            # prediction and LM seed from the host poses, which carry every
-            # mapping-side refinement
+        prev = chain["pose"]  # the pose before this frame's, for the next prediction
+        if (self.pipeline_depth == 0 and self.last is not None and self.last.pose is not None
+                and self.last.frame_id == chain["fid"]):
+            # sequential: prediction and LM seed from the host poses, which
+            # carry every mapping-side refinement
             use_motion = self.velocity is not None and reloc_ok
             pred = self.velocity @ self.last.pose if use_motion else self.last.pose
             pred = self._to_dev(pred.astype(np.float32))
             last_pose = self._to_dev(self.last.pose.astype(np.float32))
+        elif chain["prev"] is not None and reloc_ok:
+            # pipelined: the velocity of the two previous dispatches, on the
+            # device (the host has not seen those poses yet)
+            use_motion = True
+            pred = fast_track.predict_pose(chain["pose"], chain["prev"])
+            last_pose = chain["pose"]
+        elif (self.velocity is not None and reloc_ok and self.last is not None
+              and self.last.frame_id == chain["fid"]):
+            # pipelined, the chain reseeded from the last retired frame,
+            # `gap` frames back (pipeline_depth + 1 when steady): the host's
+            # velocity applied over the gap, and the frame before this one
+            # predicted alike as the LM seed of the reference-keyframe
+            # fallback and the next prediction's previous pose. The JAX
+            # package applies one step and keeps the retired pose as the
+            # previous one, so when keyframes mint at every retire (each mint
+            # breaks the chain) every frame is predicted two frames behind,
+            # and the pose LM can settle in the rotation-translation valley
+            # of a far, flat scene next to that seed. Rotations are kept on
+            # SO(3) as the device chain's are (fast_track.predict_pose).
+            use_motion = True
+            gap = frame.frame_id - self.last.frame_id
+            vel = self.velocity.astype(np.float64)
+            before = np.linalg.matrix_power(vel, gap - 1) @ self.last.pose.astype(np.float64)
+            pred = fast_track.on_se3(self._to_dev((vel @ before).astype(np.float32)))
+            if gap > 1:
+                prev = fast_track.on_se3(self._to_dev(before.astype(np.float32)))
+            last_pose = prev
         else:
             use_motion = False
             pred = last_pose = chain["pose"]
         carry = chain["carry"]
         fx, fy, cx, cy = self.intrinsics
-        feats_d, out = fast_track.fused_extract_track(
-            self._image(img), self.cam, self.extractor,
+        track_args = dict(
             **{f"last_{k}": v for k, v in carry.items()}, **fs["ref"], **fs["block"],
             pred_pose=pred, last_pose=last_pose, use_motion=use_motion,
             bounds_lo=self._bounds_d[0], bounds_hi=self._bounds_d[1],
@@ -595,38 +747,95 @@ class Tracker:
             match_th=float(cfg.match_th), min_motion_matches=cfg.min_motion_matches,
             refkf_ratio=float(cfg.refkf_ratio), local_radius=float(cfg.local_radius),
             local_ratio=float(cfg.local_ratio), min_track_inliers=cfg.min_track_inliers)
-        frame.feats = feats = DeviceFeats(feats_d)
+        if frame.feats is None:
+            feats_d, out = fast_track.fused_extract_track(
+                self._image(img), self.cam, self.extractor, **track_args)
+            frame.feats = DeviceFeats(feats_d)
+        else:
+            # a replayed frame keeps the features of its first dispatch
+            f = frame.feats
+            out = fast_track.fused_track_step(
+                *(f.dev(k) for k in ("uv_und", "desc_bits", "size", "angle", "valid",
+                                     "inv_sigma2")), **track_args)
+        feats = frame.feats
         pose_d, pt_d, n_in_d, vis_d, ok1_d, _, pos_d = out
         self._chain = dict(
             fid=frame.frame_id,
             carry=dict(uv=feats.dev("uv_und"), bits=feats.dev("desc_bits"),
                        size=feats.dev("size"), angle=feats.dev("angle"),
                        match_pt=pt_d, match_pos=pos_d),
-            pose=pose_d)
-        return self._fast_retire(frame, fs, pose_d, pt_d, n_in_d, vis_d, ok1_d)
+            pose=pose_d, prev=prev)
+        perfcount.bump("track_dispatches")
+        return dict(frame=frame, ready=streams.Ready((pose_d, pt_d, n_in_d, vis_d, ok1_d)),
+                    blk_ids_np=fs["blk_ids_np"], blk_valid_np=fs["blk_valid_np"])
 
-    def _fast_retire(self, frame, fs, pose_d, pt_d, n_in_d, vis_d, ok1_d) -> bool:
-        """Host bookkeeping of a fused step's results."""
+    def _rebuild_snapshot(self, frame_id: int):
+        """Build the device snapshot under the map lock and clear the
+        fresh-event token it saw (a newer event's token stays set, so its
+        points enter the next snapshot)."""
+        t_fs = time.perf_counter()
+        with self.map_lock:
+            token = self.map_fresh_check()
+            fs = self._build_fast_state()
+        self._fast_state = fs
+        self._fs_built_fid = frame_id
+        self.map_fresh_clear(token)
+        perfcount.bump("fs_rebuilds")
+        perfcount.event("fs_rebuild", fid=frame_id, dur=time.perf_counter() - t_fs)
+        return fs
+
+    def _fast_retire(self, rec, pipelined: bool) -> bool:
+        """Consume a dispatched frame's results: host bookkeeping and (when
+        pipelined) the velocity, trajectory and keyframe decision that the
+        sequential path performs in _track."""
+        cfg = self.cfg
         m = self.map
-        if not bool(ok1_d):
-            # both branches failed: tracking lost (reference Track() :293-316)
+        frame = rec["frame"]
+        t0 = time.perf_counter()
+        pose_np, pt_np, n_in, vis_np, ok1 = rec["ready"].host()
+        perfcount.bump("t_retire_wait_s", time.perf_counter() - t0)
+        if not bool(ok1):
+            # both branches failed: tracking lost (reference Track() :293-316);
+            # a restart reseeds the chain from host truth
             self._chain = None
             return False
-        frame.pose = _host(pose_d).astype(np.float32)
-        matches = _host(pt_d).astype(np.int32)
-        # resolve points merged/culled since the snapshot before counting
+        frame.pose = np.array(pose_np, np.float32)
+        matches = np.array(pt_np, np.int32)
+        # resolve points merged or culled since the snapshot before counting
         self._resolve_stale_matches(matches)
         frame.matches = matches
-        n_in = int(n_in_d)
+        n_in = int(n_in)
         self.n_inliers = n_in
-        vis = _host(vis_d)
-        m.pt_visible[fs["blk_ids_np"][vis & fs["blk_valid_np"]]] += 1
+        m.pt_visible[rec["blk_ids_np"][vis_np & rec["blk_valid_np"]]] += 1
         m.pt_found[matches[matches >= 0]] += 1
-        self._update_ref_kf_from_matches(matches)
-        if n_in < self.cfg.min_local_inliers:
+        # the reference-keyframe scan is (K, N): every other frame suffices
+        # when pipelined
+        if not pipelined or frame.frame_id % 2 == 0:
+            self._update_ref_kf_from_matches(matches)
+        # hysteresis band while the tracker runs pipelined (a replay
+        # included): a frame with weak_floor <= inliers < 30 keeps tracking,
+        # three weak frames in a row fail as the reference's TrackLocalMap
+        # does (src/Tracking.cc:829-836)
+        weak_floor = max(cfg.kf_min_inliers + 3, 18)
+        ok = n_in >= cfg.min_local_inliers
+        if (not ok and (pipelined or self.pipeline_depth > 0) and n_in >= weak_floor
+                and self._weak_streak < 3):
+            self._weak_streak += 1
+            perfcount.bump("weak_frames")
+            ok = True
+        elif ok:
+            self._weak_streak = 0
+        if not ok:
             self._chain = None
-            return False
-        return True
+        elif pipelined:
+            # the tail of _track, at retire time
+            if self.last is not None and self.last.pose is not None:
+                self.velocity = frame.pose @ np.linalg.inv(self.last.pose)
+            self.last = frame
+            self._finish_frame(frame)
+            if self._need_new_keyframe(frame):
+                self._create_new_keyframe(frame)
+        return ok
 
     def _build_fast_state(self):
         """The local-map block and the reference-keyframe snapshot on the
@@ -692,12 +901,14 @@ class Tracker:
     def _relocalization(self, frame: FrameData) -> bool:
         """Reference Relocalization (Tracking.cc:1146-1309): BoW candidates
         -> per-candidate descriptor search (>= 15 matches) -> RANSAC-EPnP ->
-        pose LM; success needs >= 50 inliers after the local map."""
+        pose LM; success needs >= 50 inliers after the local map. Holds the
+        map lock (it reads broad map state and is rare)."""
         if self.database is None:
             return False
         t0 = time.perf_counter()
         try:
-            return self._relocalization_impl(frame)
+            with self.map_lock:
+                return self._relocalization_impl(frame)
         finally:
             dt = time.perf_counter() - t0
             perfcount.bump("t_reloc_s", dt)
@@ -817,9 +1028,9 @@ class Tracker:
     # --------------------------------------------------------- keyframes
     def _need_new_keyframe(self, frame: FrameData) -> bool:
         """Reference NeedNewKeyFrame (src/Tracking.cc:838-922), monocular.
-        Local mapping runs each event to its end, so it is always idle
-        here and c1b passes: a keyframe is minted whenever c2 holds (the
-        JAX package's synchronous behaviour, kept for parity)."""
+        c1b needs local mapping idle (no solve in flight, no queued event);
+        a wanted keyframe while mapping is busy interrupts it
+        (reference InterruptBA, Tracking.cc:905-918)."""
         cfg = self.cfg
         n_kf = self.map.n_keyframes()
         if frame.frame_id < self.last_reloc_frame_id + cfg.max_frames and n_kf > cfg.max_frames:
@@ -835,23 +1046,27 @@ class Tracker:
             n_ref = int((counts[ref_pts] >= 2).sum())
         frames_since = frame.frame_id - self.last_kf_frame_id
         c1a = frames_since >= cfg.max_frames
-        c1b = frames_since >= 0  # and local mapping idle
+        c1b = frames_since >= 0 and self.mapping_idle()
         c2 = (self.n_inliers < n_ref * cfg.kf_ref_ratio) and self.n_inliers > cfg.kf_min_inliers
-        return (c1a or c1b) and c2
+        need = (c1a or c1b) and c2
+        if not need and c2 and not self.mapping_idle():
+            self.interrupt_mapping()
+        return need
 
     def _create_new_keyframe(self, frame: FrameData):
         # break the device chain: the keyframe's pose is synced with the
         # mapping's refinements below, and the next frame re-anchors on it
         self._chain = None
-        frame.feats.fetch_all()
-        kf = self.map.add_keyframe(frame.pose, frame.ts, frame.frame_id, frame.feats,
-                                   frame.matches.copy())
-        if self.on_keyframe_feats:
-            self.on_keyframe_feats(kf, frame.feats)
-        self.ref_kf = kf
-        self.last_kf_frame_id = frame.frame_id
+        frame.feats.fetch_all()  # before taking the lock
+        with self.map_lock:
+            kf = self.map.add_keyframe(frame.pose, frame.ts, frame.frame_id, frame.feats,
+                                       frame.matches.copy())
+            if self.on_keyframe_feats:
+                self.on_keyframe_feats(kf, frame.feats)
+            self.ref_kf = kf
+            self.last_kf_frame_id = frame.frame_id
         if self.on_new_keyframe:
             self.on_new_keyframe(kf)
-        # mapping has refined poses (synchronous); keep the frame in sync
+        # mapping may have refined poses (synchronous); keep the frame in sync
         frame.pose = self.map.kf_pose[kf].copy()
         frame.matches = self.map.kf_matches[kf].copy()

@@ -33,7 +33,7 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
   6. where a frame's time goes: the frame and its stages run alone, host
      syncs attributed to source lines, a torch.profiler summary;
   7. flagship.tracking_step once on make_example(480, 640);
-  8. the System (system.py, synchronous, 640x480, orb32, 1000 features)
+  8. the System (system.py, async_mapping=False, 640x480, orb32, 1000 features)
      with the JAX System's defaults (the shipped orb32 vocabulary, loop
      detection at every keyframe event) over the first 48 frames of the
      benchmark sequence: two-view initialization, tracked frames, keyframe
@@ -57,15 +57,29 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
  10b. the constructed loop map of tests/test_loop_closing_unit.py through
      the LoopCloser on the card and on the CPU: the same closure, keyframe
      poses within 2e-3 where the global BA starts.
+ 11. the System with the JAX System's defaults (asynchronous mapping: each
+     local BA issued on the mapping stream, folded at the next event) over
+     phase 8's 48 frames: phase 8's gates (0 resets, >= 45 tracked,
+     keyframe ATE < 5 cm), every local BA deferred; frames timed without a
+     device sync; where each fold landed, the events' waits on a solve,
+     host syncs per frame over its first 16 frames (left out of the times);
+ 12. threaded_mapping=True (the mapping worker thread, the tracker
+     pipelined two frames deep: the bench's schedule) over the bench's 150
+     frames (rendered on 8 host processes): 0 resets, <= 5 lost frames,
+     keyframe ATE < 5 cm, shutdown() drains and stops the worker in time;
+     host syncs per pipelined dispatch over frames 0-11, the device busy
+     share over frames 12-15 (profiled), then frames/s, median and p90
+     frame ms, the timed events' stages, replayed fast-path failures and
+     the worker's largest queue over frames 16-149.
 K2 is then held exact against its twin at the recorded inputs of the
 relocalization and loop searches.
 
-The launch counters are set to 0 before phases 5, 8, 9 and 10 and read
-after each. Every phase logs its wall time. Prints the card (nvidia-smi
+The launch counters are set to 0 before phases 5, 8, 9, 10, 11 and 12
+and read after each. Every phase logs its wall time. Prints the card (nvidia-smi
 name, power limit) first, then per-phase lines, one JSON line of kernel
 results (K1 and pack_bits: launches in phase 8 and by phase, per tracked
 frame of phase 5: device time, eager and graph times, plain twin, bound;
-K2 once per search, by the search's label: launches over phases 8-10 and
+K2 once per search, by the search's label: launches over phases 8-12 and
 its times at one recorded input), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -79,13 +93,14 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H, N_FEATURES = 640, 480, 1000
 N_TRACKED = 25
-N_PROFILED = 8  # phase 5b profiles the first frames of phase 5 (its profile is slow to parse)
+N_PROFILED = 4  # phase 5b profiles the first frames of phase 5 (its profile is slow to parse)
 N_WARMUP_FRAMES = 5
 MIN_INLIERS = 50
 MAX_ROT_DEG = 0.5
@@ -318,10 +333,14 @@ def measure_k2(torch, a, kw, label):
 
 class sync_counter:
     """Count host syncs by source line in the port's package while active
-    (torch.cuda.set_sync_debug_mode("warn")): sites[site] += 1."""
+    (torch.cuda.set_sync_debug_mode("warn"), on every thread): sites[site]
+    += 1; with within=(function name, dict), the syncs with that function
+    on the stack are also counted in the dict. Explicit waits on events
+    (streams.Ready) are not flagged by the debug mode; perfcount's
+    "ready_waits" counts them."""
 
-    def __init__(self, torch, sites):
-        self.torch, self.sites = torch, sites
+    def __init__(self, torch, sites, within=None):
+        self.torch, self.sites, self.within = torch, sites, within
         self.pkg = os.path.join(ROOT, "anyfeature_vslam_tpu_torch")
 
     def _on_warning(self, message, category, filename, lineno, file=None, line=None):
@@ -331,10 +350,13 @@ class sync_counter:
             return
         # the innermost caller in the port's package names the sync site
         site = "?"
-        for fr in traceback.extract_stack()[:-1]:
+        stack = traceback.extract_stack()[:-1]
+        for fr in stack:
             if fr.filename.startswith(self.pkg):
                 site = f"{os.path.relpath(fr.filename, ROOT)}:{fr.lineno} {fr.line}"
         self.sites[site] = self.sites.get(site, 0) + 1
+        if self.within is not None and any(fr.name == self.within[0] for fr in stack):
+            self.within[1][site] = self.within[1].get(site, 0) + 1
 
     def __enter__(self):
         import warnings
@@ -404,33 +426,53 @@ RECORD_FIRST = 4  # calls kept per relocalization / loop search label
 
 class SystemProbe:
     """While active, on one System: K2 launches counted by search (the
-    label of the innermost labelled caller, SEARCHES), the inputs of the
-    init searches, of the fusion searches of keyframe event RECORDED_EVENT
-    and of the first RECORD_FIRST relocalization and loop searches kept in
-    `record` by label, keyframe events timed (ms, K2 and pack launches,
-    host syncs when `sync_sites` is counting)."""
+    label of the innermost labelled caller on the launching thread,
+    SEARCHES; the kernel's launches on that thread, one per guided search
+    that has queries and candidates), the inputs of the init
+    searches, of the fusion searches of keyframe event RECORDED_EVENT and
+    of the first RECORD_FIRST relocalization and loop searches kept in
+    `record` by label, keyframe events timed (ms, K2 and pack launches, host
+    syncs when `sync_sites` is counting), and where each pending BA fold
+    landed (`folds`: at the next event, at the tracker's interrupt, in the
+    loop stage, on the watcher thread, at the final drain). With
+    sync=False neither frames nor events wait for the device, so the
+    deferred solves overlap what follows them."""
 
-    def __init__(self, torch, system, device, record=None, sync_sites=None):
+    def __init__(self, torch, system, device, record=None, sync_sites=None, sync=True):
         from anyfeature_vslam_tpu_torch.frontend import cuda_fast
         from anyfeature_vslam_tpu_torch.ops import cuda_match
 
         self.torch, self.system, self.device = torch, system, torch.device(device)
-        self.record, self.sync_sites = record, sync_sites
+        self.record, self.sync_sites, self.sync = record, sync_sites, sync
         self.counters = (cuda_fast.fast_nms, cuda_match.best_two, cuda_match.pack_bits)
-        self.label = "tracking"
+        self._tls = threading.local()
+        self._lock = threading.Lock()
         self.k2_by_label = {}
         self.events = []
+        self.folds = {}
         self._patched = []
 
+    @property
+    def label(self):
+        return getattr(self._tls, "label", "tracking")
+
+    @label.setter
+    def label(self, value):
+        self._tls.label = value
+
     def _sync(self):
-        if self.device.type == "cuda":
+        if self.sync and self.device.type == "cuda":
             self.torch.cuda.synchronize()
 
     def _syncs(self):
         return sum(self.sync_sites.values()) if self.sync_sites is not None else None
 
     def _patch(self, owner, name, wrap):
-        self._patched.append((owner, name, getattr(owner, name)))
+        # an object's own attribute is put back; one it takes from its
+        # class is removed again
+        own = isinstance(owner, type) or owner.__class__.__name__ == "module" \
+            or name in vars(owner)
+        self._patched.append((owner, name, getattr(owner, name) if own else None))
         setattr(owner, name, wrap(getattr(owner, name)))
 
     def _labelled(self, tag):
@@ -446,7 +488,33 @@ class SystemProbe:
             return inner
         return wrap
 
+    def _fold_site(self, site):
+        def wrap(fn):
+            def inner(*a, **kw):
+                prev = getattr(self._tls, "site", None)
+                self._tls.site = site
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self._tls.site = prev
+            return inner
+        return wrap
+
+    def _fold_counter(self, fn):
+        lm = self.system.local_mapper
+
+        def inner():
+            if lm._pending_fold is not None:
+                site = getattr(self._tls, "site", None) or (
+                    "watcher" if threading.current_thread().name == "ba-fold" else "drain")
+                with self._lock:
+                    self.folds[site] = self.folds.get(site, 0) + 1
+            return fn()
+        return inner
+
     def _recorder(self, fn):
+        from anyfeature_vslam_tpu_torch.ops import cuda_match
+
         def inner(*a, **kw):
             rec, lab = self.record, self.label
             if rec is not None and (
@@ -454,9 +522,13 @@ class SystemProbe:
                     or (lab not in ("init", "fusion", "tracking")
                         and len(rec.get(lab, ())) < RECORD_FIRST)):
                 rec.setdefault(lab, []).append((a, kw))
-            n0 = self.counters[1].launches
+            # the kernel's launches on this thread: a search with no query
+            # or no candidate launches nothing
+            n0 = cuda_match.thread_launches()
             out = fn(*a, **kw)
-            self.k2_by_label[lab] = self.k2_by_label.get(lab, 0) + self.counters[1].launches - n0
+            with self._lock:
+                self.k2_by_label[lab] = (self.k2_by_label.get(lab, 0)
+                                         + cuda_match.thread_launches() - n0)
             return out
         return inner
 
@@ -476,6 +548,7 @@ class SystemProbe:
     def __enter__(self):
         from anyfeature_vslam_tpu_torch.ops import matching
         from anyfeature_vslam_tpu_torch.slam import frame_ops
+        from anyfeature_vslam_tpu_torch.slam.local_mapping import LocalMapper
         from anyfeature_vslam_tpu_torch.slam.loop_closing import LoopCloser
         from anyfeature_vslam_tpu_torch.slam.tracking import Tracker
 
@@ -490,12 +563,27 @@ class SystemProbe:
                 (LoopCloser, "_search_and_fuse", "loop_fuse")):
             self._patch(owner, name, self._labelled(tag))
         self._patch(matching, "guided_best_two", self._recorder)
-        self._patch(self.system.tracker, "on_new_keyframe", self._event_wrap)
+        self._patch(LocalMapper, "process_keyframe", self._fold_site("next event"))
+        self._patch(LoopCloser, "process_keyframe", self._fold_site("loop stage"))
+        sysm = self.system
+        self._patch(sysm.local_mapper, "fold_pending", self._fold_counter)
+        im = sysm.tracker.interrupt_mapping
+        if getattr(im, "__func__", None) is type(sysm.local_mapper).fold_pending:
+            # asynchronous mapping: the interrupt lands the fold
+            self._patch(sysm.tracker, "interrupt_mapping", lambda fn: self._fold_site(
+                "interrupt")(lambda: sysm.local_mapper.fold_pending()))
+        if sysm._worker is not None:
+            self._patch(sysm._worker, "_event", self._event_wrap)
+        else:
+            self._patch(sysm.tracker, "on_new_keyframe", self._event_wrap)
         return self
 
     def __exit__(self, *exc):
         for owner, name, fn in reversed(self._patched):
-            setattr(owner, name, fn)
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
         self._patched = []
         return False
 
@@ -516,21 +604,32 @@ class SystemProbe:
                     syncs=None if s0 is None else self._syncs() - s0)
 
 
-def system_run(torch, width, height, n_frames, device, record=None, sync_sites=None):
-    """The port's System with its defaults (shipped vocabulary, loop
-    closing on) over the first n_frames of the bench sequence (rendered in
-    memory), orb32, 1000 features, synchronous. Returns (system, per-frame
-    rows, per-event rows, scene, K2 launches by search)."""
+def system_run(torch, width, height, n_frames, device, record=None, sync_sites=None,
+               frames=None, sync=True, sync_frames=None, **system_kw):
+    """The port's System (shipped vocabulary, loop closing on, `system_kw`
+    for the schedule) over the first n_frames of the bench sequence
+    (rendered in memory unless `frames` are given), orb32, 1000 features.
+    With `sync_frames`, host syncs are counted into `sync_sites` over that
+    many first frames only (those rows have "sync_counted"). Returns
+    (system, per-frame rows, per-event rows, scene, K2 launches by search,
+    the probe)."""
+    import contextlib
+
     from anyfeature_vslam_tpu_torch.system import System
     from torch_slice_scene import SliceScene
 
     sc = SliceScene(width, height)
-    frames = [sc.render(i)[0] for i in range(n_frames)]
+    if frames is None:
+        frames = [sc.render(i)[0] for i in range(n_frames)]
     system = System(SimpleNamespace(**sc.camera), feature="orb32", n_features=N_FEATURES,
-                    device=device)
-    with SystemProbe(torch, system, device, record, sync_sites) as probe:
-        rows = [probe.frame(img8, i / 30.0) for i, img8 in enumerate(frames)]
-    return system, rows, probe.events, sc, probe.k2_by_label
+                    device=device, **system_kw)
+    rows = []
+    with SystemProbe(torch, system, device, record, sync_sites, sync=sync) as probe:
+        for i, img8 in enumerate(frames[:n_frames]):
+            counted = sync_frames is not None and i < sync_frames
+            with sync_counter(torch, sync_sites) if counted else contextlib.nullcontext():
+                rows.append(dict(probe.frame(img8, i / 30.0), sync_counted=counted))
+    return system, rows, probe.events, sc, probe.k2_by_label, probe
 
 
 def ate(system, sc):
@@ -588,8 +687,8 @@ def system_phase(torch, device):
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    system, srows, sevents, ssc, k2_by = system_run(torch, W, H, N_SYSTEM_FRAMES, device,
-                                                    record=recorded)
+    system, srows, sevents, ssc, k2_by, _ = system_run(torch, W, H, N_SYSTEM_FRAMES, device,
+                                                       record=recorded, async_mapping=False)
     sys_wall = time.perf_counter() - t0
     sys_k1, sys_k2, sys_pack = (c.launches for c in counters)
     for i, r in enumerate(srows):
@@ -671,8 +770,8 @@ def system_phase(torch, device):
     # host syncs: a fresh System over the first frames, syncs counted
     sync_sites = {}
     with sync_counter(torch, sync_sites):
-        _, crows, cevents, _, _ = system_run(torch, W, H, N_SYNC_FRAMES, device,
-                                             sync_sites=sync_sites)
+        _, crows, cevents, _, _, _ = system_run(torch, W, H, N_SYNC_FRAMES, device,
+                                                sync_sites=sync_sites, async_mapping=False)
     tracked_syncs = [r["syncs"] for r in crows if r["state"] == "OK" and not r["events"]]
     log(f"[system syncs] first {N_SYNC_FRAMES} frames: {sum(sync_sites.values())} host syncs; "
         f"per keyframe event {[e['syncs'] for e in cevents]}; per frame without an event "
@@ -868,13 +967,15 @@ def loop_phase(torch, device):
         c.launches = 0
     t0 = time.perf_counter()
     cam = SimpleNamespace(**sc.camera)
-    sys_a = System(cam, feature="orb32", n_features=LOOP_FEATURES, device=device)
+    sys_a = System(cam, feature="orb32", n_features=LOOP_FEATURES, async_mapping=False,
+                   device=device)
     with SystemProbe(torch, sys_a, device) as probe_a:
         rows_a = [probe_a.frame(frames[i], i / 30.0) for i in sc.session_a]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "session_a.npz")
         sys_a.save_checkpoint(ckpt)
-        sys_b = System(cam, feature="orb32", n_features=LOOP_FEATURES, device=device)
+        sys_b = System(cam, feature="orb32", n_features=LOOP_FEATURES, async_mapping=False,
+                       device=device)
         sys_b.load_checkpoint(ckpt)
     n_loaded = sys_b.map.n_keyframes()
     closing = []
@@ -990,6 +1091,260 @@ def constructed_loop_phase(torch, device):
             and g["after"] < 0.6 * g["before"]):
         raise AssertionError("the constructed-map loop closure on the card disagrees with the "
                              "CPU port")
+
+
+N_ASYNC_FRAMES = 48
+N_THREADED_FRAMES = 150
+N_THREADED_SYNC_FRAMES = 12
+MAX_THREADED_LOST = 5
+# phase 12's frames under torch.profiler, after its sync-counted frames and
+# before its timed ones: the profiler's exit takes tens of seconds to
+# collect the window's kernels, holding the GIL, and stalls the worker
+PROFILED_WINDOW = (12, 16)
+SHUTDOWN_TIMEOUT_S = 60.0
+
+
+def _render_slice_chunk(width, height, idx):
+    from torch_slice_scene import SliceScene
+
+    sc = SliceScene(width, height)
+    return [(i, sc.render(i)[0]) for i in idx]
+
+
+def render_slice_frames(width, height, n):
+    """The first n uint8 frames of the bench sequence, rendered on the
+    host's cores (one spawned process per core, at most 8)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    n_proc = min(8, os.cpu_count() or 1)
+    idx = list(range(n))
+    with ProcessPoolExecutor(n_proc, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = pool.map(_render_slice_chunk, [width] * n_proc, [height] * n_proc,
+                         [idx[k::n_proc] for k in range(n_proc)])
+        got = dict(p for part in parts for p in part)
+    return [got[i] for i in idx]
+
+
+def _frame_stats(rows):
+    """(median ms per frame without an event, frames; with one, frames)
+    after init + 1, leaving out the frames whose host syncs were counted
+    (the sync debug mode slows them)."""
+    ok = [i for i, r in enumerate(rows) if r["state"] == "OK"]
+    steady = [r for r in rows[ok[0] + 2:] if not r.get("sync_counted")] if ok else []
+    plain = [r["ms"] for r in steady if not r["events"]]
+    ev = [r["ms"] for r in steady if r["events"]]
+    med = (lambda v: statistics.median(v) if v else float("nan"))
+    return med(plain), len(plain), med(ev), len(ev)
+
+
+def async_phase(torch, device, frames):
+    """Phase 11: the System with the JAX System's defaults (asynchronous
+    mapping: each local BA issued on the mapping stream and folded later)
+    over phase 8's 48 frames. Gates as phase 8's: 0 resets, >= 45 tracked
+    frames, keyframe ATE < 5 cm; K1 on every frame, K2 and pack launched,
+    every local BA deferred. Frames are timed without a device sync, so a
+    deferred solve overlaps the next frames. Counts set to 0 just before,
+    read just after. Returns (launches K1, K2, pack; K2 by search)."""
+    from anyfeature_vslam_tpu_torch import perfcount
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    perfcount.reset()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    sync_sites = {}
+    system, rows, events, sc, k2_by, probe = system_run(
+        torch, W, H, N_ASYNC_FRAMES, device, frames=frames, sync=False, sync_sites=sync_sites,
+        sync_frames=N_SYNC_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, pack = (c.launches for c in counters)
+    stats = system.tracker.stats
+    kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
+    plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
+    lm = system.local_mapper
+    log(f"[async] {N_ASYNC_FRAMES} frames {W}x{H} in {wall:.1f} s; tracked "
+        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}; "
+        f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points; ATE "
+        f"(Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} m over {n_fr}")
+    log(f"[async] median ms per frame after frame {N_SYNC_FRAMES - 1} (the frames before "
+        f"count host syncs): without a keyframe event {plain_ms:.1f} "
+        f"({n_plain} frames), with one {ev_ms:.1f} ({n_ev} frames); {len(events)} events, "
+        f"median {statistics.median(e['ms'] for e in events) if events else float('nan'):.1f} "
+        f"ms (host, no device sync)")
+    for name, ts in lm.stage_times.items():
+        log(f"[async] event stage {name}: median {1e3 * statistics.median(ts):.2f} ms, max "
+            f"{1e3 * max(ts):.2f} ms over {len(ts)} events")
+    waits = lm.stage_times.get("fold_wait", [])
+    log(f"[async] folds landed by site {json.dumps(probe.folds)}; events waited on a solve's "
+        f"readiness {len(waits)} times, {1e3 * sum(waits):.2f} ms in all, median "
+        f"{1e3 * statistics.median(waits) if waits else float('nan'):.2f} ms")
+    ba_lines(lm.ba_log, "async", "local BA (issue ms)")
+    loop_stage_line(system, "async")
+    log(f"[async] launches: K1 {k1}, K2 {k2} (by search {json.dumps(k2_by)}), pack {pack}")
+    crows = [r for r in rows if r["sync_counted"]]
+    plain_syncs = [r["syncs"] for r in crows if r["state"] == "OK" and not r["events"]]
+    log(f"[async syncs] first {N_SYNC_FRAMES} frames: {sum(sync_sites.values())} host syncs; "
+        f"per frame without an event {plain_syncs}; per frame with one "
+        f"{[r['syncs'] for r in crows if r['events']]}")
+    for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[async syncs]   {n:5d}x  {site}")
+    fail = []
+    if stats["resets"] != 0:
+        fail.append(f"{stats['resets']} resets")
+    if stats["tracked_frames"] < MIN_SYSTEM_TRACKED:
+        fail.append(f"{stats['tracked_frames']} tracked frames")
+    if not kf_ate < MAX_ATE_M:
+        fail.append(f"keyframe ATE {kf_ate:.4f} m")
+    if not events or not lm.ba_log or not all(b["deferred"] for b in lm.ba_log):
+        fail.append("the local BAs were not deferred")
+    if min(r["k1"] for r in rows) < 1 or k2 < 1 or pack < 1:
+        fail.append("a kernel of the path was not launched")
+    if fail:
+        raise AssertionError(f"the asynchronous-mapping phase failed: {fail}")
+    return (k1, k2, pack), k2_by
+
+
+def _busy_share(torch, prof, wall_ms):
+    """Device busy ms (the union of the CUDA kernels' intervals) and share."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(iv), 100.0 * busy / 1e3 / wall_ms
+
+
+def threaded_phase(torch, device, frames):
+    """Phase 12: threaded_mapping=True (the worker thread, pipeline depth 2,
+    the bench's schedule) over the bench's 150 frames. Gates: 0 resets, at
+    most MAX_THREADED_LOST lost frames, keyframe ATE < MAX_ATE_M, shutdown()
+    drains and stops the worker within SHUTDOWN_TIMEOUT_S; K1, K2 and pack
+    launched. Host syncs are counted over the first N_THREADED_SYNC_FRAMES
+    frames (those inside the pipelined dispatch apart), the next frames
+    (PROFILED_WINDOW) run under torch.profiler for the device's busy share,
+    and the worker is drained; the frames after are timed as a caller sees
+    them (no device sync), frames/s runs from there to the end of the final
+    drain, and the event stages are those of the events issued then.
+    Counts set to 0 just before, read just after. Returns (launches K1, K2,
+    pack; K2 by search)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from anyfeature_vslam_tpu_torch import perfcount
+    from anyfeature_vslam_tpu_torch.system import System
+    from torch_slice_scene import SliceScene
+
+    sc = SliceScene(W, H)
+    cam = SimpleNamespace(**sc.camera)
+    sync_sites, dispatch_sites = {}, {}
+    counters = _counters()
+    torch.cuda.synchronize()
+    perfcount.reset()
+    for c in counters:
+        c.launches = 0
+    system = System(cam, feature="orb32", n_features=N_FEATURES, threaded_mapping=True,
+                    device=device)
+    rows, busy = [], None
+    with SystemProbe(torch, system, device, sync=False) as probe:
+        for i, img in enumerate(frames):
+            if i == N_THREADED_SYNC_FRAMES:
+                n_disp = perfcount.get("track_dispatches")
+            if i == PROFILED_WINDOW[1]:
+                system._worker.flush(SHUTDOWN_TIMEOUT_S)
+                lm = system.local_mapper
+                n0 = dict(events=len(probe.events), ba=len(lm.ba_log),
+                          **{k: len(v) for k, v in lm.stage_times.items()})
+                t0 = time.perf_counter()
+            if i == PROFILED_WINDOW[0]:
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            counted = i < N_THREADED_SYNC_FRAMES
+            with sync_counter(torch, sync_sites, within=("_fast_dispatch", dispatch_sites)) \
+                    if counted else contextlib.nullcontext():
+                rows.append(dict(probe.frame(img, i / 30.0), sync_counted=counted))
+            if i == PROFILED_WINDOW[1] - 1:
+                torch.cuda.synchronize()
+                t_exit = time.perf_counter()
+                wall_ms = (t_exit - t_prof) * 1e3
+                prof.__exit__(None, None, None)
+                busy = _busy_share(torch, prof, wall_ms) + (
+                    wall_ms, time.perf_counter() - t_exit)
+        max_queue = system._worker.max_pending
+        t_stop = time.perf_counter()
+        try:
+            system.shutdown(SHUTDOWN_TIMEOUT_S)
+            stopped = system._worker is None
+        except TimeoutError:
+            stopped = False
+        shutdown_s = time.perf_counter() - t_stop
+    wall = time.perf_counter() - t0
+    k1, k2, pack = (c.launches for c in counters)
+    stats = system.tracker.stats
+    kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
+    log(f"[threaded syncs] first {N_THREADED_SYNC_FRAMES} frames: "
+        f"{sum(sync_sites.values())} host syncs on both threads; "
+        f"{sum(dispatch_sites.values())} inside {n_disp:.0f} pipelined dispatches "
+        f"({sum(dispatch_sites.values()) / max(n_disp, 1):.2f} per dispatch), by site:")
+    for site, n in sorted(dispatch_sites.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[threaded syncs]   {n:5d}x  {site}")
+    timed = rows[PROFILED_WINDOW[1]:]
+    ms = sorted(r["ms"] for r in timed)
+    p90 = ms[int(0.9 * (len(ms) - 1))]
+    log(f"[threaded] {len(frames)} frames {W}x{H}; frames {PROFILED_WINDOW[1]}-"
+        f"{len(frames) - 1} in {wall:.2f} s ({len(timed) / wall:.3f} frames/s, the final "
+        f"drain included; shutdown {shutdown_s:.2f} s, worker stopped {stopped}); frame ms "
+        f"over them median {statistics.median(ms):.1f}, p90 {p90:.1f}, max {ms[-1]:.1f}")
+    med = (lambda v: statistics.median(v) if v else float("nan"))
+    plain = [r["ms"] for r in timed if not r["events"]]
+    with_ev = [r["ms"] for r in timed if r["events"]]
+    log(f"[threaded] median ms per timed frame: without a keyframe event {med(plain):.1f} "
+        f"({len(plain)} frames), with one (the worker's turn inside it) {med(with_ev):.1f} "
+        f"({len(with_ev)} frames)")
+    log(f"[threaded] tracked {stats['tracked_frames']}, lost {stats['lost_frames']}, resets "
+        f"{stats['resets']}, relocalizations {stats['relocalizations']}; "
+        f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points; ATE "
+        f"(Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} m over {n_fr}")
+    events = probe.events[n0["events"]:]
+    log(f"[threaded] {len(probe.events)} worker events, {len(events)} while timed, median "
+        f"{med([e['ms'] for e in events]):.1f} ms; worker's largest queue {max_queue}; "
+        f"fast-path failures replayed "
+        f"{perfcount.get('fast_failures'):.0f}, weak frames {perfcount.get('weak_frames'):.0f}, "
+        f"staged frames {perfcount.get('staged_frames'):.0f}, pipelined dispatches "
+        f"{perfcount.get('track_dispatches'):.0f}; folds landed by site {json.dumps(probe.folds)}")
+    for name, ts in lm.stage_times.items():
+        ts = ts[n0.get(name, 0):]
+        if ts:
+            log(f"[threaded] timed event stage {name}: median {1e3 * statistics.median(ts):.2f} "
+                f"ms, max {1e3 * max(ts):.2f} ms over {len(ts)} events")
+    ba_lines(lm.ba_log[n0["ba"]:], "threaded", "timed local BA (issue ms)")
+    loop_stage_line(system, "threaded")
+    log(f"[threaded] profiled frames {PROFILED_WINDOW[0]}-{PROFILED_WINDOW[1] - 1}: wall "
+        f"{busy[3]:.1f} ms (profiler on), device busy {busy[0]:.2f} ms over {busy[1]} "
+        f"kernels ({busy[2]:.2f}%, the union of kernel intervals on both streams); the "
+        f"profiler's exit {busy[4]:.1f} s")
+    log(f"[threaded] launches: K1 {k1}, K2 {k2} (by search {json.dumps(probe.k2_by_label)}), "
+        f"pack {pack}")
+    fail = []
+    if stats["resets"] != 0:
+        fail.append(f"{stats['resets']} resets")
+    if stats["lost_frames"] > MAX_THREADED_LOST:
+        fail.append(f"{stats['lost_frames']} lost frames")
+    if not kf_ate < MAX_ATE_M:
+        fail.append(f"keyframe ATE {kf_ate:.4f} m")
+    if not stopped:
+        fail.append("shutdown did not stop the worker")
+    if k1 < 1 or k2 < 1 or pack < 1:
+        fail.append("a kernel of the path was not launched")
+    if fail:
+        raise AssertionError(f"the threaded-mapping phase failed: {fail}")
+    return (k1, k2, pack), dict(probe.k2_by_label)
 
 
 def main() -> int:
@@ -1386,6 +1741,21 @@ def main() -> int:
     constructed_loop_phase(torch, device)
     log(f"[phase 10b] {time.perf_counter() - t_phase:.1f} s")
 
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 11 begins")
+    # ---- 11. the JAX System's defaults: asynchronous mapping
+    t_phase = time.perf_counter()
+    bench_frames = render_slice_frames(W, H, N_THREADED_FRAMES)
+    log(f"[async] rendered the bench's {len(bench_frames)} frames {W}x{H} in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    async_launches, async_by = async_phase(torch, device, bench_frames[:N_ASYNC_FRAMES])
+    log(f"[phase 11] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 12 begins")
+    # ---- 12. the bench's schedule: the mapping worker, the pipelined tracker
+    t_phase = time.perf_counter()
+    threaded_launches, threaded_by = threaded_phase(torch, device, bench_frames)
+    log(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
+
     # K2 at the recorded inputs of the relocalization and loop searches:
     # each label's call with the most active queries
     t_phase = time.perf_counter()
@@ -1401,7 +1771,8 @@ def main() -> int:
     k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_new.values()])
     log(f"[K2 real] relocalization and loop searches measured in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    by_search = {k: k2_by.get(k, 0) + reloc_by.get(k, 0) + loop_by.get(k, 0) for k in SEARCHES}
+    by_phase = (k2_by, reloc_by, loop_by, async_by, threaded_by)
+    by_search = {k: sum(b.get(k, 0) for b in by_phase) for k in SEARCHES}
 
     # per tracked frame: K1 over the 8 levels; pack_bits at frame 13's
     # keypoints; K2 once per search: the tracked frame's searches (frame
@@ -1414,12 +1785,10 @@ def main() -> int:
     k2_bound_by = max(k2_real[:frame_searches], key=lambda r: r["bound_ms"])["bound_by"]
     k2_src = dict(route="cuda", source="anyfeature_vslam_tpu_torch/csrc/best_two.cu",
                   replaces="anyfeature_vslam_tpu/ops/pallas_match.py:179", library_ms=None)
-    phases = ("system", "reloc", "loop")
+    phases = ("system", "reloc", "loop", "async", "threaded")
     k2_entries = [dict(
         name="best_two[tracking]", search="tracking", **k2_src, launches=by_search["tracking"],
-        launches_by_phase=dict(zip(phases, (k2_by.get("tracking", 0),
-                                            reloc_by.get("tracking", 0),
-                                            loop_by.get("tracking", 0)))),
+        launches_by_phase=dict(zip(phases, (b.get("tracking", 0) for b in by_phase))),
         launches_tracked_frame=k2_launches, launches_per_frame=k2_launches / n_frames,
         max_abs_err=frame_k2["max_abs_err"], ms=frame_k2["eager_ms"],
         eager_ms=frame_k2["eager_ms"], graph_ms=frame_k2["graph_ms"],
@@ -1429,14 +1798,13 @@ def main() -> int:
     for label, r in list(k2_sys.items()) + list(k2_new.items()):
         k2_entries.append(dict(
             name=f"best_two[{label}]", search=label, **k2_src, launches=by_search[label],
-            launches_by_phase=dict(zip(phases, (k2_by.get(label, 0), reloc_by.get(label, 0),
-                                                loop_by.get(label, 0)))),
+            launches_by_phase=dict(zip(phases, (b.get(label, 0) for b in by_phase))),
             max_abs_err=r["max_abs_err"], ms=r["eager_ms"], eager_ms=r["eager_ms"],
             graph_ms=r["graph_ms"], device_ms=r["device_ms"], pack_device_ms=r["pack_device_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             at=r["label"], nq=r["nq"], nc=r["nc"], passes=r["passes"]))
     launches_by_phase = dict(zip(phases, ((sys_k1, sys_k2, sys_pack), reloc_launches,
-                                          loop_launches)))
+                                          loop_launches, async_launches, threaded_launches)))
     log(json.dumps({"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/fast_nms.cu",

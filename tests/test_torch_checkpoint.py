@@ -64,7 +64,7 @@ def test_system_loads_a_jax_checkpoint(tmp_path):
     path = str(tmp_path / "loop.npz")
     lm.save(path)
     sys_ = System(SimpleNamespace(**CAMERA, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0),
-                  n_features=200, device="cpu")
+                  n_features=200, async_mapping=False, device="cpu")
     sys_.local_mapper.kf_dev(0)  # a cached keyframe of the old map
     mirror_before = sys_.map.mirror()
     sys_.load_checkpoint(path)

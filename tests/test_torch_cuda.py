@@ -226,7 +226,8 @@ def test_system_on_the_card_matches_the_cpu_port(cuda):
     runs = []
     for dev in (torch.device("cpu"), cuda):
         before = cuda_match.best_two.launches
-        system = System(SimpleNamespace(**sc.camera), n_features=600, device=dev)
+        system = System(SimpleNamespace(**sc.camera), n_features=600, async_mapping=False,
+                        device=dev)
         rows = [(system.track_monocular(img, i / 30.0).name, system.map.n_keyframes(),
                  system.map.n_points()) for i, img in enumerate(frames)]
         m = system.map

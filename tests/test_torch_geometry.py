@@ -76,6 +76,38 @@ def test_predict_pose_matches_jax():
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+def test_predict_pose_keeps_a_pipelined_chain_on_so3():
+    """The pipelined tracker predicts each frame from the two previous
+    dispatches' poses, each the pose LM's update of the prediction before
+    it. Along such a chain (a fixed small motion, a pose-LM-like update, 20
+    frames) started 1e-6 off SO(3), the JAX function's R^T inverse grows
+    the distance by 1 + sqrt(2) per frame to a scaled rotation; the port
+    projects the prediction back and stays within float32 rounding (1e-5)."""
+    step = np.asarray(jse3.se3_exp(jnp.asarray(np.array([[0.01, 0.0, 0.002, 0.0, 0.003, 0.0]],
+                                                        np.float32))))[0]
+    update = np.asarray(jse3.se3_exp(jnp.asarray(np.array([[1e-4, -2e-4, 1e-4, 2e-4, 1e-4,
+                                                            -1e-4]], np.float32))))[0]
+    prev = np.eye(4, dtype=np.float32)
+    last = step @ prev
+    last[:3, :3] *= np.float32(1.0 + 1e-6)
+
+    def off_so3(p):
+        sv = np.linalg.svd(np.asarray(p, np.float64)[:3, :3], compute_uv=False)
+        return float(np.abs(sv - 1.0).max())
+
+    jp, jl = jnp.asarray(prev), jnp.asarray(last)
+    tp, tl = torch.from_numpy(prev), torch.from_numpy(last)
+    rp, rl = prev.astype(np.float64), step.astype(np.float64)  # the exact chain
+    for _ in range(20):
+        jp, jl = jl, jnp.asarray(update) @ jtrack.predict_pose(jl, jp)
+        tp, tl = tl, torch.from_numpy(update) @ ttrack.predict_pose(tl, tp)
+        rp, rl = rl, update @ (rl @ np.linalg.inv(rp)) @ rl
+    assert off_so3(tl.numpy()) < 1e-5
+    assert off_so3(np.asarray(jl)) > 1e-2
+    # the port's chain still follows the motion
+    np.testing.assert_allclose(tl.numpy(), rl, atol=1e-4, rtol=0)
+
+
 def test_project_and_k_matrix_match_jax():
     rng = np.random.default_rng(5)
     pts = rng.uniform([-2, -2, -1], [2, 2, 9], (200, 3)).astype(np.float32)

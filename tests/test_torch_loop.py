@@ -189,13 +189,13 @@ def test_live_two_session_closure_on_the_port(tmp_path):
     assert r.returncode == 0, r.stderr
     seq = dataset.load_sequence(seq_dir)
     na, nt1 = int(round(0.30 * n)), int(round(0.07 * n))
-    sys_a = System(seq.camera, fps=seq.fps, n_features=600, device="cpu")
+    sys_a = System(seq.camera, fps=seq.fps, n_features=600, async_mapping=False, device="cpu")
     for i in range(na):
         sys_a.track_monocular(dataset.load_gray(seq.image_paths[i]), seq.timestamps[i])
     assert sys_a.tracker.stats["resets"] == 0
     ckpt = str(tmp_path / "a.npz")
     sys_a.save_checkpoint(ckpt)
-    sys_b = System(seq.camera, fps=seq.fps, n_features=600, device="cpu")
+    sys_b = System(seq.camera, fps=seq.fps, n_features=600, async_mapping=False, device="cpu")
     sys_b.load_checkpoint(ckpt)
     assert sys_b.map.n_keyframes() >= 10
     for i in range(na + nt1, n):

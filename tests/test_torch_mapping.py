@@ -46,7 +46,7 @@ def snapshot():
     before the last keyframe event of a port run."""
     sc = SliceScene(W, H)
     system = System(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
-                    device="cpu")
+                    async_mapping=False, device="cpu")
     snaps = []
     event = system.tracker.on_new_keyframe
 

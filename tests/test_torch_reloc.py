@@ -42,7 +42,7 @@ def systems(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("reloc") / "jax_map.npz")
     jsys.save_checkpoint(path)
     tsys = System(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
-                  device="cpu")
+                  async_mapping=False, device="cpu")
     tsys.load_checkpoint(path)
     return sc, jsys, tsys
 
@@ -84,7 +84,8 @@ def test_port_relocalizes_after_blackout():
     """The port alone: 24 frames mapped, 3 featureless frames (LOST), then
     views at mapped poses: OK within 3 frames, one relocalization."""
     sc = SliceScene(W, H)
-    sys_ = System(JaxCamera.create(**sc.camera), n_features=N_FEATURES, device="cpu")
+    sys_ = System(JaxCamera.create(**sc.camera), n_features=N_FEATURES, async_mapping=False,
+                  device="cpu")
     t = 0
     for i in range(24):
         sys_.track_monocular(sc.render(i)[0], t / 30.0)

@@ -55,7 +55,7 @@ def runs():
     jsys = JaxSystem(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
                      enable_loop_closing=False, async_mapping=False, use_mesh=False)
     tsys = System(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
-                  enable_loop_closing=False, device="cpu")
+                  enable_loop_closing=False, async_mapping=False, device="cpu")
     return _run(jsys, frames), _run(tsys, frames)
 
 
@@ -147,7 +147,7 @@ def test_system_48_frames_ate():
     320x240, ATE below 5 cm for keyframes and frames."""
     sc = SliceScene(W, H)
     system = System(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
-                    device="cpu")
+                    async_mapping=False, device="cpu")
     for i in range(48):
         system.track_monocular(sc.render(i)[0], i / 30.0)
     assert system.tracker.stats["resets"] == 0
@@ -159,27 +159,42 @@ def test_system_48_frames_ate():
 
 
 def test_system_defaults_and_unported_options():
-    """The JAX System's defaults except async_mapping: the shipped orb32
-    vocabulary is loaded, place recognition (the database the tracker
-    relocalizes with) and the loop closer exist; asynchronous and threaded
-    mapping, other sensors and a device mesh still raise."""
+    """The JAX System's defaults: asynchronous mapping without the worker
+    thread, pipeline depth 0 (2 with the worker), the shipped orb32
+    vocabulary, place recognition (the database the tracker relocalizes
+    with) and the loop closer; threaded mapping and a pipeline depth are
+    accepted; other sensors, a device mesh, DBoW2 text vocabularies and
+    localization mode still raise, naming their ROADMAP item."""
     import inspect
 
     params = inspect.signature(System).parameters
     jparams = inspect.signature(JaxSystem).parameters
     assert params["device"].default == "cuda"
-    assert params["async_mapping"].default is False
-    for name in ("vocabulary_path", "enable_loop_closing", "max_kf", "max_pt", "seed"):
+    assert params["async_mapping"].default is True
+    for name in ("vocabulary_path", "enable_loop_closing", "max_kf", "max_pt", "seed",
+                 "async_mapping", "threaded_mapping", "pipeline_depth"):
         assert params[name].default == jparams[name].default, name
     sc = SliceScene(160, 120, n_frames=2)
     cam = JaxCamera.create(**sc.camera)
     system = System(cam, device="cpu")
+    assert system.async_mapping and system._worker is None
+    assert system.tracker.pipeline_depth == 0
+    assert system.loop_closer.defer_ba_sink is not None and not system.loop_closer.deferred_bow
     assert system.vocabulary is not None and system.vocabulary.n_words == 38416
     assert system.tracker.database is system.database is not None
     assert system.loop_closer is not None and system.loop_closer.db is system.database
     assert System(cam, device="cpu", enable_loop_closing=False).loop_closer is None
-    for kw, item in ((dict(async_mapping=True), "8"), (dict(threaded_mapping=True), "8"),
-                     (dict(pipeline_depth=2), "8"), (dict(sensor="rgbd", bf=40.0), "10"),
+    threaded = System(cam, device="cpu", threaded_mapping=True)
+    try:
+        assert threaded.tracker.pipeline_depth == 2 and threaded.loop_closer.deferred_bow
+    finally:
+        threaded.shutdown(timeout=30.0)
+    assert threaded._worker is None
+    assert System(cam, device="cpu", pipeline_depth=3).tracker.pipeline_depth == 3
+    for kw, item in ((dict(sensor="rgbd", bf=40.0), "10"),
                      (dict(vocabulary_path="ORBvoc.txt"), "14"), (dict(use_mesh=True), "12")):
         with pytest.raises(NotImplementedError, match=f"queue item {item}"):
             System(cam, device="cpu", **kw)
+    for mode in (system.activate_localization_mode, system.deactivate_localization_mode):
+        with pytest.raises(NotImplementedError, match="queue item 10"):
+            mode()
