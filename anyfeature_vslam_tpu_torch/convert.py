@@ -1,6 +1,8 @@
 """Numpy state of the JAX side -> the port's tensors on an explicit device.
 
-orb32 has no learned weights (its constants live in ``OrbExtractor``); what
+The one family with learned weights is anyfeat_nonbin: ``learned48_from_numpy``
+carries the JAX package's MLP parameters into the port's ``Learned48``.
+The other families' constants live in ``FeatureExtractor``. What else
 crosses over is the camera and the fused step's device state, laid out as
 ``Tracker._build_fast_carry`` / ``_build_fast_state`` build it in the JAX
 package (anyfeature_vslam_tpu/slam/tracking.py). A whole map crosses as a
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .frontend.learned48 import Learned48
 from .ops.camera import CameraParams
 
 CARRY_KEYS = ("uv", "bits", "size", "angle", "match_pt", "match_pos")
@@ -33,6 +36,23 @@ def camera_from_numpy(cam, device) -> CameraParams:
         *(np.float32(getattr(cam, k)) for k in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3")),
         width=int(cam.width), height=int(cam.height), device=device,
     )
+
+
+def learned48_from_numpy(params: dict, device) -> Learned48:
+    """The learned48 MLP from the dict of numpy arrays that JAX
+    ``learned48.load_weights()`` returns (w1..w3 as (in, out), b1..b3):
+    ``nn.Linear`` keeps (out, in), so each matrix is transposed."""
+    mlp = Learned48()
+    with torch.no_grad():
+        for k, layer in enumerate((mlp.fc1, mlp.fc2, mlp.fc3), start=1):
+            w = np.asarray(params[f"w{k}"], np.float32)
+            b = np.asarray(params[f"b{k}"], np.float32)
+            if layer.weight.shape != w.T.shape or layer.bias.shape != b.shape:
+                raise ValueError(f"learned48 layer {k}: {w.shape}, {b.shape} do not fit "
+                                 f"{tuple(layer.weight.shape)}")
+            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+            layer.bias.copy_(torch.from_numpy(b))
+    return mlp.requires_grad_(False).to(device)
 
 
 def tensor_from_numpy(a, device):

@@ -13,13 +13,13 @@ import functools
 import numpy as np
 import torch
 
-from .frontend.extractor import ExtractorConfig, OrbExtractor
+from .frontend.extractor import ExtractorConfig, FeatureExtractor
 from .ops import matching, pose_opt
 from .slam.frame_ops import MAX_SIZE
 
 
 def tracking_step(image, prev_bits, prev_uv_proj, prev_size, prev_valid, pts3d, t_init,
-                  fx, fy, cx, cy, extractor: OrbExtractor):
+                  fx, fy, cx, cy, extractor: FeatureExtractor):
     """Full tracking forward step for one frame.
 
     image: (H, W) float32; prev_bits (M, 256) uint8 descriptors of tracked
@@ -72,6 +72,6 @@ def entry(device="cuda"):
     the card unless the caller names another device (the tests pass
     "cpu")."""
     height, width = 480, 640
-    extractor = OrbExtractor(ExtractorConfig(n_features=1000), height, width).to(device)
+    extractor = FeatureExtractor(ExtractorConfig(n_features=1000), height, width).to(device)
     fn = functools.partial(tracking_step, extractor=extractor)
     return fn, example_on(device, height, width)

@@ -1,13 +1,23 @@
-"""orb32 feature extraction (port of anyfeature_vslam_tpu/frontend/extractor.py).
+"""Feature extraction of the FAST families (port of
+anyfeature_vslam_tpu/frontend/extractor.py).
 
-``OrbExtractor`` is the ``detector == "fast"``, ``descriptor == "bin256"``
-branch of the JAX ``extract_features``: 8-level pyramid, FAST + 3x3 NMS per
-level (kernel K1 on the card, one launch for all levels), grid-spread
-top-k, IC angle and steered BRIEF-256 on the blurred level, per-level
-budgets and ORB size normalisation. Its constants (resize matrices, Gaussian taps, BRIEF
-pattern and sampling tables, moment matrix) are module buffers, so
-``.to(device)`` moves them with the module. The registry and config are
-copied from the JAX package and held equal to it by a CPU test.
+``FeatureExtractor`` is the ``detector == "fast"`` branch of the JAX
+``extract_features``: the pyramid, FAST + 3x3 NMS per level (kernel K1 on
+the card, one launch for all levels), grid-spread top-k, then per level
+one of four descriptors:
+
+  bin256     orb32           IC angle + steered BRIEF-256, blurred level
+  bin384     brisk48         BRISK rings (ringdesc.py), raw level
+  bin512     anyfeat_bin     FREAK retina (ringdesc.py), raw level
+  learned48  anyfeat_nonbin  IC angle + learned MLP (learned48.py), raw level
+
+then per-level budgets and ORB size normalisation. Its constants (banded
+resize matrices, Gaussian taps, the descriptor's sampling tables or matrices,
+moment matrix, MLP) are module state, so ``.to(device)`` moves them with
+the module. The other detectors (akaze61, kaze64, sift128, surf64) raise
+``NotImplementedError`` naming ROADMAP.md queue item 9. The registry and
+config are copied from the JAX package and held equal to it by a CPU
+test.
 """
 
 from __future__ import annotations
@@ -18,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import brief, cuda_fast, orientation, pyramid, select
+from ..convert import learned48_from_numpy
+from . import brief, cuda_fast, learned48, orientation, pyramid, ringdesc, select
 
 ORB_MAX_SIZE = 1.2 ** 7
 
@@ -44,6 +55,10 @@ def descriptor_dim(descriptor: str) -> int:
     if descriptor.startswith("learned"):
         return int(descriptor[7:])
     return int(descriptor.replace("float", ""))
+
+
+def descriptor_dtype(descriptor: str):
+    return np.uint8 if descriptor.startswith("bin") else np.float32
 
 
 @dataclass(frozen=True)
@@ -107,34 +122,49 @@ def _normalized_size_np(cfg: ExtractorConfig):
     return (np.float32(1.0) + scaled).astype(np.float32)
 
 
-class OrbExtractor(nn.Module):
-    """orb32 extraction for images of one size. ``forward(image)`` takes an
-    (H, W) float32 image in 0..255 on the module's device and returns the
-    JAX package's feature dict: xy (N, 2), resp, octave (int32), angle,
-    size, sigma2, inv_sigma2 (N,) float32, desc_bits (N, 256) uint8 {0,1},
-    valid (N,) bool, with N = cfg.capacity."""
+_RINGS = {"bin384": "brisk", "bin512": "freak"}
+_DESCRIPTORS = ("bin256", "bin384", "bin512", "learned48")
+
+
+class FeatureExtractor(nn.Module):
+    """FAST-family extraction for images of one size. ``forward(image)``
+    takes an (H, W) float32 image in 0..255 on the module's device and
+    returns the JAX package's feature dict: xy (N, 2), resp, octave
+    (int32), angle, size, sigma2, inv_sigma2 (N,) float32, desc_bits
+    (N, D) uint8 {0,1} (binary) or float32 (learned48), valid (N,) bool,
+    with N = cfg.capacity."""
 
     def __init__(self, cfg: ExtractorConfig, height: int, width: int):
         super().__init__()
-        if cfg.detector != "fast" or cfg.descriptor != "bin256":
+        if cfg.detector != "fast" or cfg.descriptor not in _DESCRIPTORS:
             raise NotImplementedError(
-                f"the torch port extracts orb32 (fast + bin256) only; "
-                f"{cfg.detector} + {cfg.descriptor} is ROADMAP.md queue item 9, "
-                "'The other feature families'"
+                f"the torch port extracts the FAST families (orb32, brisk48, anyfeat_bin, "
+                f"anyfeat_nonbin) only; {cfg.detector} + {cfg.descriptor} is ROADMAP.md "
+                "queue item 9, 'The other feature families'"
             )
         self.cfg = cfg
         self.height, self.width = height, width
         self.shapes = pyramid.level_shapes(height, width, cfg.n_levels, cfg.scale_factor)
         for lvl in range(1, cfg.n_levels):
             (h1, w1), (h2, w2) = self.shapes[lvl - 1], self.shapes[lvl]
-            self.register_buffer(f"wr{lvl}", torch.from_numpy(pyramid.resize_weights_np(h1, h2)))
-            self.register_buffer(f"wc{lvl}", torch.from_numpy(pyramid.resize_weights_np(w1, w2)))
-        self.register_buffer("gauss", torch.from_numpy(pyramid.gaussian_kernel1d(cfg.blur_sigma, 3)))
-        self.register_buffer("brief_pattern", torch.from_numpy(brief.make_pattern(cfg.desc_dim)))
-        p1, p2 = brief.sample_index_tables_np(cfg.desc_dim)
-        self.register_buffer("brief_p1", torch.from_numpy(p1))
-        self.register_buffer("brief_p2", torch.from_numpy(p2))
+            for axis, n_in, n_out in (("r", h1, h2), ("c", w1, w2)):
+                idx, wt = pyramid.band_np(pyramid.resize_weights_np(n_in, n_out))
+                self.register_buffer(f"i{axis}{lvl}", torch.from_numpy(idx))
+                self.register_buffer(f"w{axis}{lvl}", torch.from_numpy(wt))
         self.register_buffer("moment_mat", torch.from_numpy(orientation.moment_matrix_np()))
+        if cfg.descriptor == "bin256":
+            self.register_buffer("gauss", torch.from_numpy(
+                pyramid.gaussian_kernel1d(cfg.blur_sigma, 3)))
+            p1, p2 = brief.sample_index_tables_np(cfg.desc_dim)
+            self.register_buffer("brief_p1", torch.from_numpy(p1))
+            self.register_buffer("brief_p2", torch.from_numpy(p2))
+        elif cfg.descriptor in _RINGS:
+            desc_m, ori_m = ringdesc.ring_tensors(_RINGS[cfg.descriptor])
+            self.register_buffer("ring_desc", desc_m)
+            self.register_buffer("ring_ori", ori_m)
+        else:
+            self.register_buffer("sample_mat", learned48.sample_tensor())
+            self.mlp = learned48_from_numpy(learned48.load_weights(), "cpu")
         size = _normalized_size_np(cfg)
         octave = np.concatenate([np.full(b, l, np.int32) for l, b in enumerate(cfg.level_budgets)])
         self.register_buffer("octave", torch.from_numpy(octave))
@@ -144,8 +174,27 @@ class OrbExtractor(nn.Module):
                             zip(cfg.level_scales, cfg.level_budgets)])))
 
     def resize_mats(self):
-        return [(getattr(self, f"wr{l}"), getattr(self, f"wc{l}"))
+        """The pyramid's banded resize matrices (``pyramid.build_pyramid``)."""
+        return [tuple(getattr(self, f"{k}{l}") for k in ("ir", "wr", "ic", "wc"))
                 for l in range(1, self.cfg.n_levels)]
+
+    def describe(self, img_l, xy, valid):
+        """(angle (n,), descriptors (n, D)) of one level's keypoints."""
+        d = self.cfg.descriptor
+        if d == "bin256":
+            # one patch gather from the blurred level serves the IC angle
+            # and the BRIEF sampling, as in the JAX package
+            img_blur = pyramid.gaussian_blur(img_l, self.gauss)
+            flat = orientation.gather_patches(
+                img_blur, xy, orientation.PATCH_RADIUS).reshape(xy.shape[0], -1)
+            ang = orientation.ic_angle_from_patches(flat, self.moment_mat)
+            return ang, brief.describe_from_flat(flat, ang, valid, self.brief_p1, self.brief_p2)
+        if d in _RINGS:
+            return ringdesc.describe_ring(img_l, xy, valid, _RINGS[d], self.ring_desc,
+                                          self.ring_ori)
+        ang = orientation.ic_angle(img_l, xy, self.moment_mat)
+        return ang, learned48.describe_learned48(img_l, xy, ang, valid, self.sample_mat,
+                                                 self.mlp)
 
     def forward(self, image):
         cfg = self.cfg
@@ -155,15 +204,8 @@ class OrbExtractor(nn.Module):
         scores = cuda_fast.fast_nms_levels(levels, cfg.detect_th)
         outs = {k: [] for k in ("xy", "resp", "angle", "desc_bits", "valid")}
         for lvl, budget in enumerate(cfg.level_budgets):
-            img_l = levels[lvl]
             xy, resp, valid = select.select_spread_topk(scores[lvl], budget, cfg.border)
-            # one patch gather from the blurred level serves the IC angle
-            # and the BRIEF sampling, as in the JAX package
-            img_blur = pyramid.gaussian_blur(img_l, self.gauss)
-            flat = orientation.gather_patches(
-                img_blur, xy, orientation.PATCH_RADIUS).reshape(budget, -1)
-            ang = orientation.ic_angle_from_patches(flat, self.moment_mat)
-            desc = brief.describe_from_flat(flat, ang, valid, self.brief_p1, self.brief_p2)
+            ang, desc = self.describe(levels[lvl], xy, valid)
             outs["xy"].append(xy)
             outs["resp"].append(resp)
             outs["angle"].append(ang)
@@ -182,3 +224,13 @@ class OrbExtractor(nn.Module):
             desc_bits=torch.cat(outs["desc_bits"]),
             valid=valid,
         )
+
+
+# the orb32 extractor's earlier name
+OrbExtractor = FeatureExtractor
+
+
+def make_extractor(cfg: ExtractorConfig, height: int, width: int) -> FeatureExtractor:
+    """The extractor of ``cfg``'s family (a CPU module: ``.to(device)``
+    moves it); families not yet ported raise NotImplementedError."""
+    return FeatureExtractor(cfg, height, width)

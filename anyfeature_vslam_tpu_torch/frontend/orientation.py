@@ -44,3 +44,11 @@ def ic_angle_from_patches(flat, moment_mat):
     moment matrix (fp32 product, TF32 off)."""
     m = flat @ moment_mat
     return torch.atan2(m[:, 1], m[:, 0])
+
+
+def ic_angle(img, xy, moment_mat):
+    """Orientations (N,) of keypoints xy (N, 2) on a level image: the IC
+    angle of the radius-15 patches (learned48 takes it on the raw level,
+    orb32 on the blurred one)."""
+    patches = gather_patches(img, xy, PATCH_RADIUS)
+    return ic_angle_from_patches(patches.reshape(patches.shape[0], -1), moment_mat)

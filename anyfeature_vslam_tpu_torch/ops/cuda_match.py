@@ -6,8 +6,9 @@
 other, and unlike the JAX dispatcher it has no size threshold: every
 guided search on the card goes through the kernel. Binary candidates may
 come packed (``pack_bits``, once per candidate set, shared by several
-searches); the binary search is then one launch, since each warp packs
-its own queries. ``best_two.launches`` counts search launches (and
+searches; ``pack_candidates`` packs binary sets and passes float ones
+by); the binary search is then one launch, since each warp packs its own
+queries. ``best_two.launches`` counts search launches (and
 ``thread_launches()`` those made by the calling thread), ``pack_bits.launches``
 pack launches.
 
@@ -107,6 +108,13 @@ def pack_bits(bits):
 
 
 pack_bits.launches = 0
+
+
+def pack_candidates(desc):
+    """Candidates shared by several searches, in the form they take them:
+    binary descriptors packed once (``pack_bits``), float ones None (the
+    float search reads the (N, D) float32 rows as they are)."""
+    return pack_bits(desc.contiguous()) if desc.dtype == torch.uint8 else None
 
 
 def gate_mask(q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):

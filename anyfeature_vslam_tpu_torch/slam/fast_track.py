@@ -1,11 +1,12 @@
 """The tracked frame as one call (port of anyfeature_vslam_tpu/slam/fast_track.py).
 
-``fused_extract_track`` runs orb32 extraction (kernel K1 on every level),
+``fused_extract_track`` runs extraction (kernel K1 on every level),
 keypoint undistortion and ``fused_track_step``: the motion-model guided
 search with a reference-keyframe fallback, the local-map search, and up to
 three motion-only pose LMs (reference Tracking.cc:619-836). Every guided
-search is a launch of kernel K2 on the card; the frame's descriptors are
-packed once (``cuda_match.pack_bits``) for the three searches over them.
+search is a launch of kernel K2 on the card; a binary frame's descriptors
+are packed once (``cuda_match.pack_candidates``) for the three searches
+over them, a float frame's are searched as they are.
 
 The JAX package runs the frame as one XLA program with two ``lax.cond``s.
 Here it runs eagerly; the motion branch is a Python ``if`` on
@@ -92,8 +93,8 @@ def fused_track_step(
     if isinstance(use_motion, torch.Tensor):
         use_motion = bool(use_motion.item())
     # the candidates of the motion search, its retry and the local-map
-    # search, packed once
-    f_words = cuda_match.pack_bits(f_bits.contiguous())
+    # search, packed once (binary families)
+    f_words = cuda_match.pack_candidates(f_bits)
 
     ok_a = False
     use_mm = torch.zeros((), dtype=torch.bool, device=dev)
@@ -162,7 +163,7 @@ def fused_extract_track(img8, cam, extractor, *track_args, **track_kwargs):
     """Extraction + undistortion + ``fused_track_step`` for one frame.
 
     img8: (H, W) uint8 (or float) image on the extractor's device; cam: the
-    port's CameraParams; extractor: an ``OrbExtractor``. The remaining
+    port's CameraParams; extractor: a ``FeatureExtractor``. The remaining
     arguments are those of ``fused_track_step`` after the six current-frame
     feature arrays. Returns (feats dict, track outputs)."""
     feats = extractor(img8.to(torch.float32))

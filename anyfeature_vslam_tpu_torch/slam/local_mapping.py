@@ -256,7 +256,7 @@ class LocalMapper:
     def _cache(self, kf: int, ent: dict):
         """Pack the descriptors and cache the entry with its hand-off (the
         tensors were produced on the current stream)."""
-        ent["words"] = cuda_match.pack_bits(ent["bits"].contiguous())
+        ent["words"] = cuda_match.pack_candidates(ent["bits"])
         self._dev_kf[int(kf)] = (int(self.map.kf_uid[kf]), ent, streams.Handoff(ent.values()))
 
     def seed_kf_device(self, kf: int, feats):

@@ -39,10 +39,11 @@ def new_stream(device):
 
 
 class Handoff:
-    """Tensors produced on the current stream, for readers on any stream."""
+    """Tensors produced on the current stream, for readers on any stream
+    (None entries are skipped)."""
 
     def __init__(self, tensors):
-        self.tensors = [t for t in tensors if t.is_cuda]
+        self.tensors = [t for t in tensors if t is not None and t.is_cuda]
         self.event = None
         self._readers = set()
         if self.tensors:

@@ -44,7 +44,8 @@ import torch
 
 from . import streams
 from .convert import camera_from_numpy
-from .frontend.extractor import FEATURE_REGISTRY, ExtractorConfig, descriptor_dim
+from .frontend.extractor import (FEATURE_REGISTRY, ExtractorConfig, descriptor_dim,
+                                 descriptor_dtype)
 from .io import dataset, trajectory
 from .place_recognition.database import KeyFrameDatabase
 from .place_recognition.vocab import Vocabulary, train_vocabulary
@@ -226,7 +227,8 @@ class System:
         capacity = ExtractorConfig(n_features=n_features, n_levels=n_oct,
                                    scale_factor=scale).capacity
         self.map = SlamMap(max_kf=max_kf, max_pt=max_pt, n_feat=capacity,
-                           desc_dim=descriptor_dim(descriptor), desc_dtype=np.uint8,
+                           desc_dim=descriptor_dim(descriptor),
+                           desc_dtype=descriptor_dtype(descriptor),
                            device=self.device)
         # one reentrant lock serializes every structural map mutation:
         # keyframe minting, the event's mutation windows, folds, loop

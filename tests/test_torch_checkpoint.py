@@ -9,6 +9,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from anyfeature_vslam_tpu.slam.map_state import SlamMap as JaxMap
 from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
@@ -57,6 +58,65 @@ def test_jax_port_jax_round_trip(tmp_path, which):
         assert sorted(zj.files) == sorted(zt.files)
         for k in zj.files:
             assert np.array_equal(zj[k], zt[k]), k
+
+
+def _float_maps():
+    """The same float32-descriptor map (anyfeat_nonbin's 48-d store) in
+    each package: keyframes, points, a merge, a culled point."""
+    rng = np.random.default_rng(1)
+    n, n_pts = 48, 40
+
+    def unit(shape):
+        d = rng.normal(size=shape).astype(np.float32)
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    feats = [dict(uv_und=rng.uniform(0, 320, (n, 2)).astype(np.float32), desc_bits=unit((n, 48)),
+                  octave=rng.integers(0, 8, n).astype(np.int32),
+                  size=rng.choice([1.0, 1.2, 1.44], n).astype(np.float32),
+                  angle=rng.uniform(0, 6.28, n).astype(np.float32),
+                  inv_sigma2=rng.uniform(0.5, 1, n).astype(np.float32),
+                  valid=rng.random(n) < 0.95) for _ in range(3)]
+    pos = rng.uniform([-1, -1, 2], [1, 1, 4], (n_pts, 3)).astype(np.float32)
+    desc = unit((n_pts, 48))
+    maps = []
+    for cls in (JaxMap, PortMap):
+        kw = {} if cls is JaxMap else dict(device="cpu")
+        m = cls(max_kf=4, max_pt=64, n_feat=n, desc_dim=48, desc_dtype=np.float32, **kw)
+        kfs = []
+        for k in range(3):
+            t = np.eye(4, dtype=np.float32)
+            t[:3, 3] = [0.1 * k, 0.0, 0.0]
+            kfs.append(m.add_keyframe(t, 0.1 * k, 2 * k, feats[k], np.full(n, -1, np.int32)))
+        ids = m.add_points(pos, desc, kfs[0], np.ones(n_pts, np.float32))
+        for k in kfs:
+            slots = np.arange(n)[(np.arange(n) + k) % 3 != 0]
+            m.kf_matches[k][slots] = ids[(slots * (k + 1)) % n_pts]
+        m.update_point_stats(ids)
+        m.merge_points([int(ids[0])], [int(ids[1])])
+        m.remove_points(ids[5:7])
+        m.update_point_stats()
+        maps.append(m)
+    return maps
+
+
+def test_float_descriptor_round_trip_both_ways(tmp_path):
+    """A float32-descriptor map: JAX save -> port load -> port save -> JAX
+    load, and port save -> JAX load; the desc_dtype metadata survives."""
+    jm, pm = _float_maps()
+    assert pm.kf_desc_bits.dtype == pm.pt_desc_bits.dtype == np.float32
+    np.testing.assert_array_equal(pm.pt_desc_bits, jm.pt_desc_bits)
+    jm.save(str(tmp_path / "j.npz"))
+    tm = PortMap.load(str(tmp_path / "j.npz"), device="cpu")
+    _assert_same(jm, tm)
+    assert np.dtype(tm.desc_dtype) == np.float32 and tm.pt_desc_bits.dtype == np.float32
+    tm.save(str(tmp_path / "t.npz"))
+    _assert_same(jm, JaxMap.load(str(tmp_path / "t.npz")))
+    pm.save(str(tmp_path / "p.npz"))
+    back = JaxMap.load(str(tmp_path / "p.npz"))
+    assert np.dtype(back.desc_dtype) == np.float32
+    np.testing.assert_array_equal(back.kf_desc_bits, pm.kf_desc_bits)
+    np.testing.assert_array_equal(back.pt_desc_bits, pm.pt_desc_bits)
+    assert tm.mirror().gather(np.arange(3))[6].dtype == torch.float32
 
 
 def test_system_loads_a_jax_checkpoint(tmp_path):

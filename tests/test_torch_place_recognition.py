@@ -5,7 +5,10 @@ keyframe database's loop and relocalization candidates.
 Tolerances and why:
 - the shipped vocabulary loads to the same arrays in both packages;
 - word ids exactly equal, on the descriptors of rendered frames and on
-  random ones (integer distances, the first minimum taken by both);
+  random ones (integer distances, the first minimum taken by both); with
+  the float vocabulary (anyfeat_nonbin, squared L2 summed in another
+  order) equal except where a level's two smallest child distances lie
+  within 1e-5 of each other;
 - dense bow vectors within 1e-6 (float32 sums of the same idf weights in
   another order) and the database's sparse bows exactly equal;
 - loop and relocalization candidate lists, minimum scores and
@@ -28,7 +31,8 @@ from anyfeature_vslam_tpu import native
 from anyfeature_vslam_tpu.place_recognition import database as jdb
 from anyfeature_vslam_tpu.place_recognition import vocab as jvoc
 from anyfeature_vslam_tpu.slam.map_state import SlamMap as JaxMap
-from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, OrbExtractor
+from anyfeature_vslam_tpu_torch.frontend.extractor import (ExtractorConfig, OrbExtractor,
+                                                           make_extractor)
 from anyfeature_vslam_tpu_torch.place_recognition import database as tdb
 from anyfeature_vslam_tpu_torch.place_recognition import vocab as tvoc
 from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
@@ -91,6 +95,46 @@ def test_word_ids_equal_on_random_and_tied_descriptors(vocabs):
         want = np.asarray(jvoc.transform_words(jv, jnp.asarray(b), jnp.asarray(valid)))
         got = tvoc.transform_words(tv, torch.from_numpy(b), torch.from_numpy(valid)).numpy()
         assert np.array_equal(got, want)
+
+
+def _near_tie_rows(vocab, desc, tol=1e-5):
+    """Rows whose float64 descent meets, at some level, two children within
+    tol of the smallest distance."""
+    node = np.zeros(len(desc), np.int64)
+    near = np.zeros(len(desc), bool)
+    d = desc.astype(np.float64)
+    for level in range(vocab.depth):
+        cand = vocab.centroids[level][node[:, None] * vocab.branching
+                                      + np.arange(vocab.branching)].astype(np.float64)
+        dist = ((d[:, None, :] - cand) ** 2).sum(-1)
+        two = np.sort(dist, axis=1)[:, :2]
+        near |= two[:, 1] - two[:, 0] < tol
+        node = node * vocab.branching + dist.argmin(1)
+    return near
+
+
+@pytest.mark.parametrize("feature", ["brisk48", "anyfeat_bin", "anyfeat_nonbin"])
+def test_family_vocabularies_word_ids(feature):
+    """The shipped vocabularies of the FAST families (branching 196, depth
+    2; 384- and 512-bit binary, 48-d float) on the port's descriptors of
+    two rendered frames."""
+    path = os.path.join(ROOT, "vocabularies", f"voc_{feature}_38k.npz")
+    jv, tv = jvoc.Vocabulary.load(path), tvoc.Vocabulary.load(path)
+    assert (tv.branching, tv.depth) == (jv.branching, jv.depth) == (196, 2)
+    ext = make_extractor(ExtractorConfig.for_feature(feature, 600), 240, 320)
+    sc = SliceScene(320, 240)
+    for i in (0, 10):
+        f = ext(torch.from_numpy(sc.render(i)[0]).float())
+        desc, valid = f["desc_bits"].numpy(), f["valid"].numpy()
+        assert desc.dtype == tv.centroids[0].dtype
+        want = np.asarray(jvoc.transform_words(jv, jnp.asarray(desc), jnp.asarray(valid)))
+        got = tvoc.transform_words(tv, torch.from_numpy(desc), torch.from_numpy(valid)).numpy()
+        assert (got >= 0).sum() > 400
+        if desc.dtype == np.uint8:
+            assert np.array_equal(got, want)
+        else:
+            near = _near_tie_rows(tv, desc) & valid
+            assert np.array_equal(got[~near], want[~near]) and near.sum() <= 5
 
 
 def test_bow_vectors(vocabs, frame_descs):
