@@ -11,8 +11,8 @@ one of four descriptors:
   bin512     anyfeat_bin     FREAK retina (ringdesc.py), raw level
   learned48  anyfeat_nonbin  IC angle + learned MLP (learned48.py), raw level
 
-then per-level budgets and ORB size normalisation. Its constants (banded
-resize matrices, Gaussian taps, the descriptor's sampling tables or matrices,
+then per-level budgets and ORB size normalisation. Its constants (resize
+matrices, Gaussian taps, the descriptor's sampling tables or matrices,
 moment matrix, MLP) are module state, so ``.to(device)`` moves them with
 the module. The other detectors (akaze61, kaze64, sift128, surf64) raise
 ``NotImplementedError`` naming ROADMAP.md queue item 9. The registry and
@@ -147,10 +147,8 @@ class FeatureExtractor(nn.Module):
         self.shapes = pyramid.level_shapes(height, width, cfg.n_levels, cfg.scale_factor)
         for lvl in range(1, cfg.n_levels):
             (h1, w1), (h2, w2) = self.shapes[lvl - 1], self.shapes[lvl]
-            for axis, n_in, n_out in (("r", h1, h2), ("c", w1, w2)):
-                idx, wt = pyramid.band_np(pyramid.resize_weights_np(n_in, n_out))
-                self.register_buffer(f"i{axis}{lvl}", torch.from_numpy(idx))
-                self.register_buffer(f"w{axis}{lvl}", torch.from_numpy(wt))
+            self.register_buffer(f"wr{lvl}", torch.from_numpy(pyramid.resize_weights_np(h1, h2)))
+            self.register_buffer(f"wc{lvl}", torch.from_numpy(pyramid.resize_weights_np(w1, w2)))
         self.register_buffer("moment_mat", torch.from_numpy(orientation.moment_matrix_np()))
         if cfg.descriptor == "bin256":
             self.register_buffer("gauss", torch.from_numpy(
@@ -174,8 +172,7 @@ class FeatureExtractor(nn.Module):
                             zip(cfg.level_scales, cfg.level_budgets)])))
 
     def resize_mats(self):
-        """The pyramid's banded resize matrices (``pyramid.build_pyramid``)."""
-        return [tuple(getattr(self, f"{k}{l}") for k in ("ir", "wr", "ic", "wc"))
+        return [(getattr(self, f"wr{l}"), getattr(self, f"wc{l}"))
                 for l in range(1, self.cfg.n_levels)]
 
     def describe(self, img_l, xy, valid):
@@ -197,9 +194,16 @@ class FeatureExtractor(nn.Module):
                                                  self.mlp)
 
     def forward(self, image):
-        cfg = self.cfg
+        return self.from_levels(self.levels(image))
+
+    def levels(self, image):
+        """The image's pyramid, one contiguous (H_l, W_l) tensor per level."""
         image = image.reshape(self.height, self.width)
-        levels = [l.contiguous() for l in pyramid.build_pyramid(image, self.resize_mats())]
+        return [l.contiguous() for l in pyramid.build_pyramid(image, self.resize_mats())]
+
+    def from_levels(self, levels):
+        """The feature dict of ``forward`` from the pyramid's levels."""
+        cfg = self.cfg
         # K1 on every level: one launch on the card
         scores = cuda_fast.fast_nms_levels(levels, cfg.detect_th)
         outs = {k: [] for k in ("xy", "resp", "angle", "desc_bits", "valid")}
@@ -229,8 +233,3 @@ class FeatureExtractor(nn.Module):
 # the orb32 extractor's earlier name
 OrbExtractor = FeatureExtractor
 
-
-def make_extractor(cfg: ExtractorConfig, height: int, width: int) -> FeatureExtractor:
-    """The extractor of ``cfg``'s family (a CPU module: ``.to(device)``
-    moves it); families not yet ported raise NotImplementedError."""
-    return FeatureExtractor(cfg, height, width)

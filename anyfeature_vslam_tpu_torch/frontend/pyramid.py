@@ -2,9 +2,8 @@
 anyfeature_vslam_tpu/frontend/pyramid.py).
 
 The resize matrices and blur taps are numpy constants copied from the JAX
-package (a CPU test holds them equal); ``frontend/extractor.py`` keeps the
-matrices' bands and the taps as buffers of its ``FeatureExtractor``
-module.
+package (a CPU test holds them equal); ``frontend/extractor.py`` keeps them
+as buffers of its ``OrbExtractor`` module.
 """
 
 from __future__ import annotations
@@ -49,57 +48,18 @@ def gaussian_kernel1d(sigma: float, radius: int):
     return k / k.sum()
 
 
-def band_np(w):
-    """A resize matrix (n_out, n_in) as its band: (n_out, K) int64 input
-    indices and float32 weights of each row's nonzeros in ascending index
-    order, K the widest row, short rows padded with weight 0 at index 0."""
-    nz = w != 0
-    k = max(int(nz.sum(1).max()), 1)
-    idx = np.zeros((w.shape[0], k), np.int64)
-    wt = np.zeros((w.shape[0], k), np.float32)
-    for i, row in enumerate(nz):
-        js = np.nonzero(row)[0]
-        idx[i, :len(js)] = js
-        wt[i, :len(js)] = w[i, js]
-    return idx, wt
-
-
-def _band_sum(x, idx, wt, dim):
-    """sum_k wt[:, k] * x gathered at idx[:, k] along dim, as a CPU matmul
-    sums it: a fused multiply-add per tap, in ascending k, into a float32
-    accumulator. Each step is exact in float64 (a product of two float32
-    values fits in its mantissa) and then rounded to float32, so the CPU
-    and the card give the same bits: the bits of the CPU's fp32 matmul of
-    the dense resize matrices at 320x240 (every level), and at 99.5% of
-    the pixels at 640x480, where the matmul splits its sums."""
-    n_out, k = idx.shape
-    taps = x.index_select(dim, idx.reshape(-1)).double()
-    if dim == 0:
-        prod = (wt.double()[:, :, None] * taps.view(n_out, k, -1)).unbind(1)
-    else:
-        prod = (wt.double()[None] * taps.view(x.shape[0], n_out, k)).unbind(2)
-    acc = prod[0].float()
-    for p in prod[1:]:
-        acc = (acc.double() + p).float()
-    return acc
-
-
-def build_pyramid(image, resize_bands):
+def build_pyramid(image, resize_mats):
     """image (H, W) float32 -> list of per-level images.
 
     Cascaded level-to-level like the reference (src/ORBextractor.cc:652):
-    level l = Wr_l @ level_{l-1} @ Wc_l^T, with the banded matrices of
-    ``resize_weights_np`` given as ``resize_bands``, a list of (row
-    indices, row weights, column indices, column weights) per level 1..
-    (``band_np``), on the image's device, summed tap by tap
-    (``_band_sum``) in a fixed order, so the CPU and the card compute the
-    same levels bit for bit (a one-ulp difference in a level pixel can
-    flip its bf16 rounding in the descriptors that round their operands).
-    The JAX package runs these products at bf16x3 (~1e-4 gray levels).
+    level l = Wr_l @ level_{l-1} @ Wc_l^T. ``resize_mats`` is a list of
+    (Wr, Wc) pairs for levels 1.., on the image's device. The JAX package
+    runs these products at bf16x3 (~1e-4 gray levels); here they are plain
+    fp32 with TF32 off.
     """
     levels = [image]
-    for ir, wr, ic, wc in resize_bands:
-        levels.append(_band_sum(_band_sum(levels[-1], ir, wr, 0), ic, wc, 1))
+    for wr, wc in resize_mats:
+        levels.append((wr @ levels[-1]) @ wc.T)
     return levels
 
 

@@ -78,14 +78,17 @@ relocalization and loop searches.
      (FREAK, 512 bits) and anyfeat_nonbin (learned 48-d float), each at
      640x480 with 1000 features: K1 bit-exact on the family's 8 levels of
      one frame; one extraction on the card against the CPU (>= 99% of
-     keypoints equal; binary rows >= 99% equal, float descriptors within
-     1e-4; median angle error < 1e-4 rad) and its time; every family
+     keypoints equal; binary rows >= 99% equal, float rows >= 99% within
+     1e-4; median angle error < 1e-4 rad) and, to hold the descriptor
+     stage alone, against the CPU at the card's pyramid (the same, float
+     rows all within 1e-4), and its time; every family
      runs, and a failure of any fails the phase; the System with the JAX
      defaults (asynchronous mapping, the
      family's shipped vocabulary, loop detection at every event) over
      phase 8's 48 frames: 0 resets, >= 45 tracked, keyframe ATE < 2 cm,
-     K1 once per frame, K2 from the init, tracking and fusion searches
-     (pack_bits for the binary families only), ms per frame with and
+     K1 once per frame (once more for a rebuilt initialization), K2 from
+     the init, tracking and fusion searches (pack_bits for the binary
+     families only), ms per frame with and
      without an event; K2 against its twin at the recorded init, tracking
      and fusion searches (binary: exact; float: within 1e-5, equal indices
      where best and second lie further apart).
@@ -760,8 +763,9 @@ def system_phase(torch, device):
         f"keyframes and {srows[init_frame]['pts']} points; at the end "
         f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points")
     log(f"[system] tracked {stats['tracked_frames']}, lost {stats['lost_frames']}, resets "
-        f"{stats['resets']}; ATE (Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf_ate}, "
-        f"frames {fr_ate:.5f} m over {n_fr_ate}")
+        f"{stats['resets']}, reinitializations {stats['reinitializations']}; ATE "
+        f"(Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf_ate}, frames {fr_ate:.5f} m "
+        f"over {n_fr_ate}")
     if not sevents:
         raise AssertionError("the System phase ran no keyframe event")
     log(f"[system] median ms per frame after init+1: without a keyframe event "
@@ -1216,7 +1220,8 @@ def async_phase(torch, device, frames):
     plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
     lm = system.local_mapper
     log(f"[async] {N_ASYNC_FRAMES} frames {W}x{H} in {wall:.1f} s; tracked "
-        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}; "
+        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}, "
+        f"reinitializations {stats['reinitializations']}; "
         f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points; ATE "
         f"(Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} m over {n_fr}")
     log(f"[async] median ms per frame after frame {N_SYNC_FRAMES - 1} (the frames before "
@@ -1416,10 +1421,10 @@ def family_extraction(torch, device, feature, img8):
     import numpy as np
 
     from anyfeature_vslam_tpu_torch.frontend import cuda_fast, pyramid
-    from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, make_extractor
+    from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, FeatureExtractor
 
     cfg = ExtractorConfig.for_feature(feature, N_FEATURES)
-    ext = make_extractor(cfg, H, W).to(device)
+    ext = FeatureExtractor(cfg, H, W).to(device)
     img = torch.from_numpy(img8).to(device).float()
     levels = [l.contiguous() for l in pyramid.build_pyramid(img, ext.resize_mats())]
     n0 = cuda_fast.fast_nms.launches
@@ -1437,31 +1442,56 @@ def family_extraction(torch, device, feature, img8):
         f"{cfg.scale_factor}, threshold {cfg.detect_th}), "
         f"{sum(int((g > 0).sum()) for g in got_levels)} corners")
 
-    fd = {k: v.cpu().numpy() for k, v in ext(img).items()}
-    fc = {k: v.numpy() for k, v in make_extractor(cfg, H, W)(img.cpu()).items()}
+    # the extraction on the card; on the CPU from the CPU's own pyramid;
+    # and on the CPU from the card's pyramid, which holds the descriptor
+    # stage alone (the pyramid's matmuls sum in another order on each
+    # device: a last-bit difference in a level can flip the bf16 rounding
+    # of a descriptor operand, which moves a learned48 row by ~1e-4)
+    fd = {k: v.cpu().numpy() for k, v in ext.from_levels(levels).items()}
+    ext_cpu = FeatureExtractor(cfg, H, W)
+    cpu_levels = ext_cpu.levels(img.cpu())
+    level_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(levels, cpu_levels))
+    fc = {k: v.numpy() for k, v in ext_cpu.from_levels(cpu_levels).items()}
+    fs = {k: v.numpy() for k, v in ext_cpu.from_levels([l.cpu() for l in levels]).items()}
 
     def keyed(f):
         keys = zip(f["octave"], f["xy"][:, 0], f["xy"][:, 1])
         return {k: i for i, k in enumerate(keys) if f["valid"][i]}
 
-    kd, kc = keyed(fd), keyed(fc)
-    common = sorted(set(kd) & set(kc))
-    same_kp = len(common) / max(len(kc), len(kd), 1)
-    rd = fd["desc_bits"][[kd[k] for k in common]]
-    rc = fc["desc_bits"][[kc[k] for k in common]]
-    ang = np.abs(fd["angle"][[kd[k] for k in common]] - fc["angle"][[kc[k] for k in common]])
-    med_ang = float(np.median(ang)) if len(ang) else float("inf")
+    def compare(fa, fb):
+        ka, kb = keyed(fa), keyed(fb)
+        common = sorted(set(ka) & set(kb))
+        same_kp = len(common) / max(len(ka), len(kb), 1)
+        ra = fa["desc_bits"][[ka[k] for k in common]]
+        rb = fb["desc_bits"][[kb[k] for k in common]]
+        ang = np.abs(fa["angle"][[ka[k] for k in common]] - fb["angle"][[kb[k] for k in common]])
+        med_ang = float(np.median(ang)) if len(ang) else float("inf")
+        if ra.dtype == np.uint8:
+            same_rows = (ra == rb).all(axis=1)
+            err = float((~same_rows).any())
+        else:
+            row_err = np.abs(ra - rb).max(axis=1) if len(ra) else np.zeros(0)
+            same_rows = row_err <= MAX_FLOAT_DESC_ERR
+            err = float(row_err.max()) if len(ra) else 0.0
+        return len(kb), len(ka), same_kp, ra, float(same_rows.mean()), err, med_ang
+
+    n_c, n_d, same_kp, rd, same_rows, err, med_ang = compare(fd, fc)
+    *_, same_kp_s, _, same_rows_s, err_s, med_ang_s = compare(fd, fs)
     if rd.dtype == np.uint8:
-        same_rows = float((rd == rc).all(axis=1).mean())
-        desc_ok, desc_line = same_rows >= MIN_FAMILY_AGREE, f"{same_rows:.4f} of rows equal"
+        desc_line = f"{same_rows:.4f} of rows equal ({same_rows_s:.4f} at the card's levels)"
+        desc_ok = same_rows >= MIN_FAMILY_AGREE and same_rows_s >= MIN_FAMILY_AGREE
     else:
-        err = float(np.abs(rd - rc).max())
-        desc_ok, desc_line = err <= MAX_FLOAT_DESC_ERR, f"max abs err {err:.3g}"
+        desc_line = (f"{same_rows:.4f} of rows within {MAX_FLOAT_DESC_ERR:g}, max abs err "
+                     f"{err:.3g} ({err_s:.3g} at the card's levels)")
+        desc_ok = same_rows >= MIN_FAMILY_AGREE and err_s <= MAX_FLOAT_DESC_ERR
     e_ms = time_ms(torch, lambda: ext(img), reps=10)
-    log(f"[{feature}] extraction card vs CPU: {len(kc)} / {len(kd)} valid keypoints, "
-        f"{same_kp:.4f} equal (level, x, y); descriptors {rd.dtype} x {rd.shape[1]}: "
-        f"{desc_line}; median angle err {med_ang:.3g} rad; {e_ms:.3f} ms on the card (eager)")
-    if not (same_kp >= MIN_FAMILY_AGREE and desc_ok and med_ang < MAX_MEDIAN_ANGLE_ERR):
+    log(f"[{feature}] extraction card vs CPU: levels max abs diff {level_err:.3g} gray "
+        f"levels; {n_c} / {n_d} valid keypoints, {same_kp:.4f} equal (level, x, y) "
+        f"({same_kp_s:.4f} at the card's levels); descriptors {rd.dtype} x {rd.shape[1]}: "
+        f"{desc_line}; median angle err {med_ang:.3g} rad ({med_ang_s:.3g}); {e_ms:.3f} ms "
+        "on the card (eager)")
+    if not (min(same_kp, same_kp_s) >= MIN_FAMILY_AGREE and desc_ok
+            and max(med_ang, med_ang_s) < MAX_MEDIAN_ANGLE_ERR):
         raise AssertionError(f"[{feature}] the extraction on the card disagrees with the CPU")
     return k1_err
 
@@ -1471,8 +1501,9 @@ def family_phase(torch, device, feature, frames):
     (``family_extraction``), then the System with the JAX System's
     defaults (asynchronous mapping, the family's shipped vocabulary, loop
     detection at every event) over frames: 0 resets, >= 45 tracked,
-    keyframe ATE < MAX_FAMILY_ATE_M; K1 once per frame, K2 from the init,
-    tracking and fusion searches; K2 held against its twin at the recorded
+    keyframe ATE < MAX_FAMILY_ATE_M; K1 once per frame (once more for a
+    rebuilt initialization), K2 from the init, tracking and fusion
+    searches; K2 held against its twin at the recorded
     inputs of the init search, one tracking search and one fusion search.
     Counts set to 0 just before the System run, read just after. Returns
     (K1 launches, K1 max abs err, pack launches, K2 rows by search)."""
@@ -1501,7 +1532,8 @@ def family_phase(torch, device, feature, frames):
             f"{r['inliers']} {r['ms']:.1f} ms, events {r['events']}, launches K1 {r['k1']} "
             f"K2 {r['k2']} pack {r['pack']}")
     log(f"[{feature}] System {len(frames)} frames {W}x{H} in {wall:.1f} s; tracked "
-        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}; "
+        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}, "
+        f"reinitializations {stats['reinitializations']}; "
         f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points, descriptors "
         f"{np.dtype(system.map.desc_dtype).name} x {system.map.desc_dim}; ATE (Sim3-aligned) "
         f"keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} m over {n_fr}")
@@ -1522,8 +1554,9 @@ def family_phase(torch, device, feature, frames):
         fail.append("the System runs without the shipped vocabulary or loop closing")
     elif len(system.loop_times) != len(events):
         fail.append("a keyframe event without its loop stage")
-    if k1 != len(rows) or min(r["k1"] for r in rows) != 1:
-        fail.append("K1 not launched once per frame")
+    # a rebuilt initialization extracts its frame again (init extractor)
+    if k1 != len(rows) + stats["reinitializations"] or min(r["k1"] for r in rows) != 1:
+        fail.append("K1 not launched once per frame (and once per reinitialization)")
     if not all(k2_by.get(k, 0) > 0 for k in FAMILY_SEARCHES) or sum(k2_by.values()) != k2:
         fail.append("K2 not launched by each of the init, tracking and fusion searches")
     binary = np.dtype(system.map.desc_dtype) == np.uint8

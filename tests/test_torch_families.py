@@ -171,7 +171,7 @@ def test_extract_features_matches_jax(frame, name):
     jcfg = jext.ExtractorConfig.for_feature(name, N_FEATURES)
     want = {k: np.asarray(v) for k, v in
             jext.extract_features(jnp.asarray(frame), jcfg, H, W).items()}
-    ext = text.make_extractor(text.ExtractorConfig.for_feature(name, N_FEATURES), H, W)
+    ext = text.FeatureExtractor(text.ExtractorConfig.for_feature(name, N_FEATURES), H, W)
     got = {k: v.numpy() for k, v in ext(torch.from_numpy(frame)).items()}
     assert set(got) == set(want)
     for k in want:
@@ -206,7 +206,7 @@ def test_float_search_twin_matches_pallas_on_learned48(frame):
     """K2's plain twin against the Pallas kernel (interpret mode) on
     anyfeat_nonbin descriptors of two rendered frames, with the window and
     size gates of a guided search."""
-    ext = text.make_extractor(text.ExtractorConfig.for_feature("anyfeat_nonbin", N_FEATURES),
+    ext = text.FeatureExtractor(text.ExtractorConfig.for_feature("anyfeat_nonbin", N_FEATURES),
                               H, W)
     fa = ext(torch.from_numpy(frame))
     fb = ext(torch.from_numpy(SliceScene(W, H).render(15)[0].astype(np.float32)))

@@ -31,8 +31,8 @@ from anyfeature_vslam_tpu import native
 from anyfeature_vslam_tpu.place_recognition import database as jdb
 from anyfeature_vslam_tpu.place_recognition import vocab as jvoc
 from anyfeature_vslam_tpu.slam.map_state import SlamMap as JaxMap
-from anyfeature_vslam_tpu_torch.frontend.extractor import (ExtractorConfig, OrbExtractor,
-                                                           make_extractor)
+from anyfeature_vslam_tpu_torch.frontend.extractor import (ExtractorConfig, FeatureExtractor,
+                                                           OrbExtractor)
 from anyfeature_vslam_tpu_torch.place_recognition import database as tdb
 from anyfeature_vslam_tpu_torch.place_recognition import vocab as tvoc
 from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
@@ -121,7 +121,7 @@ def test_family_vocabularies_word_ids(feature):
     path = os.path.join(ROOT, "vocabularies", f"voc_{feature}_38k.npz")
     jv, tv = jvoc.Vocabulary.load(path), tvoc.Vocabulary.load(path)
     assert (tv.branching, tv.depth) == (jv.branching, jv.depth) == (196, 2)
-    ext = make_extractor(ExtractorConfig.for_feature(feature, 600), 240, 320)
+    ext = FeatureExtractor(ExtractorConfig.for_feature(feature, 600), 240, 320)
     sc = SliceScene(320, 240)
     for i in (0, 10):
         f = ext(torch.from_numpy(sc.render(i)[0]).float())
