@@ -48,9 +48,30 @@
 // popcounts, ~2 us on the CUDA cores), runs only when motion tracking
 // fails.
 //
-// Float path (D <= 128): max(|q|^2 + |c|^2 - 2 q.c, 0) in fp32 like the
-// plain version, with another summation order; one warp per query,
-// candidate tiles of 64 rows through shared memory.
+// Float path (D = 48, 64, 128; one instance per width): max(|q|^2 + |c|^2 -
+// 2 q.c, 0) like the plain version. The candidates come prepared once per
+// set (cuda_match.FloatSet: the contiguous rows and their norms, taken by
+// the plain version's own expression, so they equal its norms bit for
+// bit); a query's norm is a warp reduction in the kernel, so a search is
+// one launch. What bounds it is again latency, not bytes or operations:
+// the gates pass 0.14% of the pairs at anyfeat_nonbin's fusion search and
+// 0.54% at its init search (0.13-1.9% at orb32's motion and local-map
+// searches); only the unwindowed reference-keyframe search, one launch in
+// about 1650 of a 48-frame System run, passes most (67.8%: at 1000 x 1000
+// x 48 that is 32M FMAs, ~1 us at 67 TFLOP/s; chip_smoke.py phases 3 and
+// 13, PERF.md). So best_two_f32_kernel is the binary path's block (32
+// warps, S from Nq, gate data as float4 {u, v, size or NaN, norm}, gate
+// first, per-warp queues, the ordered fold and lexicographic merge), each
+// lane computing one queued candidate's distance in fp32 FFMA from the
+// warp's query row in shared memory (read as a broadcast) and the
+// candidate's row read from L2 by 16-byte loads: only passing rows are
+// read, where staging every row in every block costs more than the gated
+// work. A tile's sizes and validity flags go through registers and are
+// stored after the thread's next stretch of work, so that no thread waits
+// on a load while it could compute. Tensor cores are not used: a 3xTF32
+// mma.sync search over staged rows was measured (PERF.md, section 7) and
+// is faster only at unwindowed searches, which the System runs too rarely
+// to matter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +80,7 @@ namespace {
 
 constexpr float kInf = 3.0e8f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;               // warps per block (pack, float path)
+constexpr int kWarps = 8;               // warps per block (pack)
 constexpr int kThreads = kWarps * 32;
 constexpr int kMatchWarps = 32;         // warps per block (binary search)
 constexpr int kMatchThreads = kMatchWarps * 32;
@@ -67,8 +88,6 @@ constexpr int kSms = 132;               // streaming multiprocessors of an H100 
 constexpr int kQueue = 64;              // ring of queued candidate rows per warp
 constexpr int kWholeMax = 2048;         // candidate sets staged whole up to this size
 constexpr int kTile = 1024;             // rows per tile (two buffers) above it
-constexpr int kTileCF = 64;             // candidate rows per tile (float)
-constexpr int kMaxDimF = 128;           // widest float descriptor
 
 struct Best2 {
   float best;
@@ -339,86 +358,222 @@ void launch_bits_split(const uint8_t* q_bits, const uint32_t* c_words, int nq, i
 
 // ------------------------------------------------------------- float path
 
-// per-candidate gate data staged beside each float tile
-struct CandMeta {
-  float u, v, size;
-  int valid;
-};
-
-__device__ __forceinline__ bool gate(const CandMeta& c, float qu, float qv,
-                                     float rad, float slo, float shi) {
-  return c.valid && fabsf(qu - c.u) <= rad && fabsf(qv - c.v) <= rad &&
-         c.size >= slo && c.size <= shi;
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
-__global__ void best_two_f32_kernel(const float* __restrict__ qf,
-                                    const float* __restrict__ cf,
-                                    int nq, int nc, int d, Side s) {
-  extern __shared__ float fsm[];
-  float* s_q = fsm;                                  // kWarps x d
-  float* s_c = s_q + kWarps * d;                     // kTileCF x (d+1)
-  float* s_cn = s_c + kTileCF * (d + 1);             // kTileCF
-  CandMeta* s_meta = reinterpret_cast<CandMeta*>(s_cn + kTileCF);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q = blockIdx.x * kWarps + warp;
-  const bool active = q < nq;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 
-  float qn = 0.f, qu = 0.f, qv = 0.f, rad = -1.f, slo = 0.f, shi = 0.f;
-  float* my_q = s_q + warp * d;
-  if (active) {
-    for (int k = lane; k < d; k += 32) {
-      const float x = qf[static_cast<size_t>(q) * d + k];
-      my_q[k] = x;
-      qn += x * x;
-    }
+// A float tile's gate data, float4 {u, v, size or NaN where invalid, norm}
+// per candidate, staged in two steps so that no thread waits on a load
+// while it could compute: stage() issues u, v and the norm by cp.async and
+// loads this thread's sizes and validity flags into registers; finish()
+// stores the size (or NaN) after the thread's next stretch of work.
+template <int kPer>
+struct GateStage {
+  float size[kPer];
+  uint8_t valid[kPer];
+
+  __device__ __forceinline__ void stage(float4* s_gate, const float* __restrict__ c_norm,
+                                        const Side& s, int t0, int n) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(kFull, qn, off);
-    qu = s.q_uv[2 * q];
-    qv = s.q_uv[2 * q + 1];
-    rad = s.q_rad[q];
-    slo = s.q_slo[q];
-    shi = s.q_shi[q];
-  }
-  Best2 acc{kInf, -1, kInf};
-
-  for (int t0 = 0; t0 < nc; t0 += kTileCF) {
-    const int n = min(kTileCF, nc - t0);
-    __syncthreads();
-    for (int i = tid; i < n * d; i += nthr) {
-      const int r = i / d, k = i % d;
-      s_c[r * (d + 1) + k] = cf[static_cast<size_t>(t0) * d + i];
-    }
-    for (int i = tid; i < n; i += nthr) {
-      const int j = t0 + i;
-      s_meta[i] = CandMeta{s.c_uv[2 * j], s.c_uv[2 * j + 1], s.c_size[j],
-                           static_cast<int>(s.c_valid[j])};
-    }
-    __syncthreads();
-    for (int r = tid; r < n; r += nthr) {
-      float cn = 0.f;
-      for (int k = 0; k < d; ++k) cn += s_c[r * (d + 1) + k] * s_c[r * (d + 1) + k];
-      s_cn[r] = cn;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = lane; j < n; j += 32) {
-      float v = kInf;
-      if (gate(s_meta[j], qu, qv, rad, slo, shi)) {
-        float dot = 0.f;
-        for (int k = 0; k < d; ++k) dot += my_q[k] * s_c[j * (d + 1) + k];
-        v = fmaxf(qn + s_cn[j] - 2.0f * dot, 0.0f);
+    for (int p = 0; p < kPer; ++p) {
+      const int i = threadIdx.x + p * kMatchThreads;
+      if (i < n) {
+        float* g = reinterpret_cast<float*>(s_gate + i);
+        cp_async8(g, s.c_uv + 2 * (t0 + i));
+        cp_async4(g + 3, c_norm + t0 + i);
+        size[p] = s.c_size[t0 + i];
+        valid[p] = s.c_valid[t0 + i];
       }
-      fold(acc, v, t0 + j);
+    }
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ void finish(float4* s_gate, int n) const {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int i = threadIdx.x + p * kMatchThreads;
+      if (i < n) {
+        reinterpret_cast<float*>(s_gate + i)[2] =
+            valid[p] ? size[p] : __int_as_float(0x7fc00000);
+      }
     }
   }
-  if (!active) return;
+};
+
+// Shared memory of a block: the queues, the per-warp partial results, each
+// warp's query row, then one or two tiles of gate data.
+template <int D>
+size_t f32_smem_bytes(int tile, int nbuf) {
+  return kQueueBytes + kPartBytes + static_cast<size_t>(kMatchWarps) * D * sizeof(float) +
+         static_cast<size_t>(nbuf) * tile * sizeof(float4);
+}
+
+template <int D>
+size_t f32_smem_max() {
+  const size_t whole = f32_smem_bytes<D>(kWholeMax, 1);
+  const size_t tiled = f32_smem_bytes<D>(kTile, 2);
+  return whole > tiled ? whole : tiled;
+}
+
+// max(|q|^2 + |c|^2 - 2 q.c, 0) in fp32 FFMA: q from shared memory (a
+// broadcast to the warp), c from L2 by 16-byte loads
+template <int D>
+__device__ __forceinline__ float l2sq(const float* q, float qn, const float* __restrict__ c,
+                                      float cn) {
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  const float4* c4 = reinterpret_cast<const float4*>(c);
+  float ax = 0.0f, ay = 0.0f, az = 0.0f, aw = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < D / 4; ++k) {
+    const float4 a = q4[k];
+    const float4 b = __ldg(c4 + k);
+    ax = fmaf(a.x, b.x, ax);
+    ay = fmaf(a.y, b.y, ay);
+    az = fmaf(a.z, b.z, az);
+    aw = fmaf(a.w, b.w, aw);
+  }
+  return fmaxf(qn + cn - 2.0f * ((ax + ay) + (az + aw)), 0.0f);
+}
+
+// q (nq, D) rows, c_rows (nc, D) rows and c_norm (nc,) their squared norms
+// (the prepared set). The binary kernel's block: G = 32 / S queries, each
+// served by S warps that scan every S-th 32-candidate chunk, gate first,
+// and queue the passing candidates; each lane then reads one queued row
+// from L2. A query's norm is a warp reduction. `tile` is nc (one buffer)
+// or kTile (two buffers).
+template <int D, int S>
+__global__ void __launch_bounds__(kMatchThreads)
+best_two_f32_kernel(const float* __restrict__ qf, const float* __restrict__ c_rows,
+                    const float* __restrict__ c_norm, int nq, int nc, int tile, Side s) {
+  constexpr int G = kMatchWarps / S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* s_queue = reinterpret_cast<int*>(smem_raw);
+  Best2* s_part = reinterpret_cast<Best2*>(smem_raw + kQueueBytes);
+  float* s_q = reinterpret_cast<float*>(smem_raw + kQueueBytes + kPartBytes);
+  float4* s_gate = reinterpret_cast<float4*>(s_q + kMatchWarps * D);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = warp % S;
+  const unsigned below = (1u << lane) - 1u;
+  const int ntiles = (nc + tile - 1) / tile;
+  GateStage<(kWholeMax + kMatchThreads - 1) / kMatchThreads> cur, next;
+
+  // the first tile is in flight while each warp loads its query
+  cur.stage(s_gate, c_norm, s, 0, min(tile, nc));
+  const int q = blockIdx.x * G + warp / S;
+  const bool active = q < nq;  // an inactive query keeps rad = -1: no gate passes
+  float* my_q = s_q + warp * D;
+  float qn = 0.0f;
+  if (active) {
+    const float4* src = reinterpret_cast<const float4*>(qf + static_cast<size_t>(q) * D);
+    for (int k = lane; k < D / 4; k += 32) {
+      const float4 x = src[k];
+      reinterpret_cast<float4*>(my_q)[k] = x;
+      qn += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(kFull, qn, off);
+  const float qu = active ? s.q_uv[2 * q] : 0.0f;
+  const float qv = active ? s.q_uv[2 * q + 1] : 0.0f;
+  const float rad = active ? s.q_rad[q] : -1.0f;
+  const float slo = active ? s.q_slo[q] : 0.0f;
+  const float shi = active ? s.q_shi[q] : 0.0f;
+  cur.finish(s_gate, min(tile, nc));
+  Best2 acc{kInf, -1, kInf};
+  int* queue = s_queue + warp * kQueue;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int t0 = t * tile;
+    const int n = min(tile, nc - t0);
+    const int buf = t & 1;
+    const int n1 = t + 1 < ntiles ? min(tile, nc - t0 - tile) : 0;
+    if (n1 > 0) {  // the next tile goes into the other buffer
+      next.stage(s_gate + (buf ^ 1) * tile, c_norm, s, t0 + tile, n1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's gate data, the query rows
+    const float4* tile_gate = s_gate + buf * tile;
+    const float* tile_rows = c_rows + static_cast<size_t>(t0) * D;
+
+    if (rad >= 0.0f) {  // warp-uniform: a disabled query scans nothing
+      int head = 0, tail = 0;
+      for (int base = 32 * split; base < n; base += 32 * S) {
+        const int j = base + lane;
+        const float4 g = j < n ? tile_gate[j]
+                               : make_float4(0.0f, 0.0f, __int_as_float(0x7fc00000), 0.0f);
+        const bool pass = fabsf(qu - g.x) <= rad && fabsf(qv - g.y) <= rad && g.z >= slo &&
+                          g.z <= shi;
+        const unsigned ballot = __ballot_sync(kFull, pass);
+        if (pass) queue[(tail + __popc(ballot & below)) & (kQueue - 1)] = j;
+        tail += __popc(ballot);
+        if (tail - head >= 32) {  // 32 queued: one each
+          __syncwarp();
+          const int jj = queue[(head + lane) & (kQueue - 1)];
+          __syncwarp();
+          head += 32;
+          fold(acc, l2sq<D>(my_q, qn, tile_rows + jj * D, tile_gate[jj].w), t0 + jj);
+        }
+      }
+      __syncwarp();  // the rest of the queue, fewer than 32
+      if (lane < tail - head) {
+        const int jj = queue[(head + lane) & (kQueue - 1)];
+        fold(acc, l2sq<D>(my_q, qn, tile_rows + jj * D, tile_gate[jj].w), t0 + jj);
+      }
+    }
+    if (n1 > 0) next.finish(s_gate + (buf ^ 1) * tile, n1);
+    __syncthreads();  // this buffer and the queues are reused by the next tile
+  }
+
   acc = warp_merge(acc);
-  if (lane == 0) {
+  if (S > 1) {  // merge the query's S warps (order-independent)
+    if (lane == 0) s_part[warp] = acc;
+    __syncthreads();
+    if (split != 0) return;
+#pragma unroll
+    for (int k = 1; k < S; ++k) acc = merge(acc, s_part[warp + k]);
+  }
+  if (lane == 0 && active) {
     s.best[q] = acc.best;
     s.idx[q] = acc.idx;
     s.second[q] = acc.second;
   }
+}
+
+template <int D, int S>
+int set_smem_limit_f32() {
+  return static_cast<int>(cudaFuncSetAttribute(best_two_f32_kernel<D, S>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(f32_smem_max<D>())));
+}
+
+template <int D, int S>
+cudaError_t launch_f32(const float* q, const float* c_rows, const float* c_norm, int nq, int nc,
+                       const Side& s, cudaStream_t stream) {
+  constexpr int G = kMatchWarps / S;
+  const int tile = nc <= kWholeMax ? nc : kTile;
+  const int nbuf = tile < nc ? 2 : 1;
+  const int grid = (nq + G - 1) / G;
+  best_two_f32_kernel<D, S><<<grid, kMatchThreads, f32_smem_bytes<D>(tile, nbuf), stream>>>(
+      q, c_rows, c_norm, nq, nc, tile, s);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32_split(const float* q, const float* c_rows, const float* c_norm, int nq,
+                             int nc, const Side& s, cudaStream_t stream) {
+  // as launch_bits_split: S warps per query while the grid fits one wave
+  if (nq * 8 <= kMatchWarps * kSms) return launch_f32<D, 8>(q, c_rows, c_norm, nq, nc, s, stream);
+  if (nq * 4 <= kMatchWarps * kSms) return launch_f32<D, 4>(q, c_rows, c_norm, nq, nc, s, stream);
+  if (nq * 2 <= kMatchWarps * kSms) return launch_f32<D, 2>(q, c_rows, c_norm, nq, nc, s, stream);
+  return launch_f32<D, 1>(q, c_rows, c_norm, nq, nc, s, stream);
 }
 
 Side make_side(const float* q_uv, const float* q_rad, const float* q_slo,
@@ -429,14 +584,20 @@ Side make_side(const float* q_uv, const float* q_rad, const float* q_slo,
 
 }  // namespace
 
-// Raises the dynamic shared memory limit of every binary kernel instance to
-// what its largest launch asks (up to 172 KB). Call once per device before
-// the first launch; returns the first CUDA error, 0 on success.
+// Raises the dynamic shared memory limit of every search kernel instance to
+// what its largest launch asks (binary up to 172 KB, float up to 57 KB).
+// Call once per device before the first launch; returns the first CUDA
+// error, 0 on success.
 extern "C" int best_two_init() {
   int (*const setters[])() = {
       set_smem_limit<8, 1>,  set_smem_limit<8, 2>,  set_smem_limit<8, 4>,  set_smem_limit<8, 8>,
       set_smem_limit<12, 1>, set_smem_limit<12, 2>, set_smem_limit<12, 4>, set_smem_limit<12, 8>,
       set_smem_limit<16, 1>, set_smem_limit<16, 2>, set_smem_limit<16, 4>, set_smem_limit<16, 8>,
+#define F32_SETTERS(D)                                                          \
+  set_smem_limit_f32<D, 1>, set_smem_limit_f32<D, 2>, set_smem_limit_f32<D, 4>, \
+      set_smem_limit_f32<D, 8>
+      F32_SETTERS(48), F32_SETTERS(64), F32_SETTERS(128),
+#undef F32_SETTERS
   };
   for (auto set : setters) {
     const int err = set();
@@ -482,21 +643,24 @@ extern "C" int best_two_bits(const uint8_t* q_bits, const uint32_t* c_words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Float path. q (nq, d), c (nc, d) float32, d <= 128; side arrays and
-// outputs as in best_two_bits.
-extern "C" int best_two_f32(const float* q, const float* c, int nq, int nc,
-                            int d, const float* q_uv, const float* q_rad,
-                            const float* q_slo, const float* q_shi,
-                            const float* c_uv, const float* c_size,
-                            const uint8_t* c_valid, float* best, int* idx,
-                            float* second, void* stream_ptr) {
-  if (d < 1 || d > kMaxDimF) return static_cast<int>(cudaErrorInvalidValue);
+// Float path, one launch. q (nq, d) float32 rows, c_rows (nc, d) float32
+// rows and c_norm (nc,) their squared norms, all 16-byte aligned, d = 48,
+// 64 or 128; c_uv 8-byte aligned. Side arrays and outputs as in
+// best_two_bits.
+extern "C" int best_two_f32(const float* q, const float* c_rows, const float* c_norm,
+                            int nq, int nc, int d, const float* q_uv,
+                            const float* q_rad, const float* q_slo, const float* q_shi,
+                            const float* c_uv, const float* c_size, const uint8_t* c_valid,
+                            float* best, int* idx, float* second, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Side s = make_side(q_uv, q_rad, q_slo, q_shi, c_uv, c_size, c_valid,
                            best, idx, second);
-  const size_t shmem = (kWarps * d + kTileCF * (d + 1) + kTileCF) * sizeof(float) +
-                       kTileCF * sizeof(CandMeta);
-  const int grid = (nq + kWarps - 1) / kWarps;
-  best_two_f32_kernel<<<grid, kThreads, shmem, stream>>>(q, c, nq, nc, d, s);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (d) {
+    case 48: err = launch_f32_split<48>(q, c_rows, c_norm, nq, nc, s, stream); break;
+    case 64: err = launch_f32_split<64>(q, c_rows, c_norm, nq, nc, s, stream); break;
+    case 128: err = launch_f32_split<128>(q, c_rows, c_norm, nq, nc, s, stream); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }

@@ -4,13 +4,14 @@
 ``best_two`` launches the kernel for CUDA tensors and uses the plain twin
 ``reference_best_two`` for CPU tensors; it never falls back from one to the
 other, and unlike the JAX dispatcher it has no size threshold: every
-guided search on the card goes through the kernel. Binary candidates may
-come packed (``pack_bits``, once per candidate set, shared by several
-searches; ``pack_candidates`` packs binary sets and passes float ones
-by); the binary search is then one launch, since each warp packs its own
-queries. ``best_two.launches`` counts search launches (and
-``thread_launches()`` those made by the calling thread), ``pack_bits.launches``
-pack launches.
+guided search on the card goes through the kernel. Candidates shared by
+several searches are prepared once (``pack_candidates``): binary ones
+packed into words (``pack_bits``), float ones as a ``FloatSet`` (the
+contiguous rows and their norms). A search is then one launch, since each
+warp packs its own binary query or takes its float query's norm; a search
+given raw candidates prepares them itself. ``best_two.launches`` counts
+search launches (and ``thread_launches()`` those made by the calling
+thread), ``pack_bits.launches`` pack launches.
 
 Semantics (both versions): for each query, among candidates with
 |du|, |dv| <= q_rad (a negative radius disables the row), q_slo <= c_size
@@ -25,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -48,7 +50,7 @@ def _lib(device_index: int):
     lib.pack_bits.restype = _I
     lib.best_two_bits.argtypes = [_P, _P, _I, _I, _I, _I] + [_P] * 11
     lib.best_two_bits.restype = _I
-    lib.best_two_f32.argtypes = [_P, _P, _I, _I, _I] + [_P] * 11
+    lib.best_two_f32.argtypes = [_P, _P, _P, _I, _I, _I] + [_P] * 11
     lib.best_two_f32.restype = _I
     with torch.cuda.device(device_index):
         err = lib.best_two_init()
@@ -110,11 +112,28 @@ def pack_bits(bits):
 pack_bits.launches = 0
 
 
+class FloatSet(NamedTuple):
+    """Float candidates prepared once for the searches that share them:
+    the contiguous (N, D) float32 rows and their squared norms (N,)."""
+
+    rows: torch.Tensor
+    norms: torch.Tensor
+
+
+def prepare_float(desc) -> FloatSet:
+    """(N, D) float32 rows -> FloatSet. The norms are the twin's own
+    expression (matching.l2sq_matrix), so they equal its norms bit for
+    bit on the same device; the JAX wrapper also takes them outside its
+    kernel."""
+    rows = desc.contiguous()
+    return FloatSet(rows, torch.sum(rows * rows, dim=-1))
+
+
 def pack_candidates(desc):
     """Candidates shared by several searches, in the form they take them:
-    binary descriptors packed once (``pack_bits``), float ones None (the
-    float search reads the (N, D) float32 rows as they are)."""
-    return pack_bits(desc.contiguous()) if desc.dtype == torch.uint8 else None
+    binary descriptors packed once (``pack_bits``), float ones prepared
+    once (``prepare_float``)."""
+    return pack_bits(desc.contiguous()) if desc.dtype == torch.uint8 else prepare_float(desc)
 
 
 def gate_mask(q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid):
@@ -131,12 +150,16 @@ def reference_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, 
                        c_dim=None):
     """Plain PyTorch twin of the kernel: the dense (Nq, Nc) distance
     matrix, the gates as a mask, then matching.best_two. With ``c_dim``,
-    c_feat holds packed words (``pack_bits``) of c_dim-bit descriptors."""
+    c_feat holds packed words (``pack_bits``) of c_dim-bit descriptors; a
+    FloatSet gives its rows and norms."""
     from . import matching
 
-    if c_dim is not None:
-        c_feat = unpack_bits_plain(c_feat, c_dim)
-    dist = matching.descriptor_distance_matrix(q_feat, c_feat)
+    if isinstance(c_feat, FloatSet):
+        dist = matching.l2sq_matrix(q_feat, c_feat.rows, nb=c_feat.norms)
+    else:
+        if c_dim is not None:
+            c_feat = unpack_bits_plain(c_feat, c_dim)
+        dist = matching.descriptor_distance_matrix(q_feat, c_feat)
     ok = gate_mask(q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid)
     best, idx, second = matching.best_two(dist, ok)
     idx = torch.where(best < INF, idx, torch.full_like(idx, -1))
@@ -151,41 +174,71 @@ def _check(name, t, dtype, shape):
         )
 
 
+def _check_float_set(q_feat, c):
+    """A FloatSet fits the float32 queries: same width, one norm per row."""
+    rows, norms = c
+    if (q_feat.dtype != torch.float32 or q_feat.dim() != 2 or rows.dtype != torch.float32
+            or rows.dim() != 2 or rows.shape[1] != q_feat.shape[1]
+            or norms.dtype != torch.float32 or tuple(norms.shape) != (rows.shape[0],)):
+        raise ValueError(f"best_two: prepared float candidates {rows.dtype} {tuple(rows.shape)} "
+                         f"with norms {norms.dtype} {tuple(norms.shape)} for {q_feat.dtype} "
+                         f"{tuple(q_feat.shape)} queries")
+
+
+def _aligned(name, t, nbytes):
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"best_two: {name} must be {nbytes}-byte aligned")
+
+
 def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid, c_dim=None):
     """Masked best/second-best search. q_feat (Nq, D), c_feat (Nc, D):
     uint8 {0,1} with D in {256, 384, 488, 512} or float32 with D in
-    {48, 64, 128}; or, binary only, c_feat (Nc, ceil(D/32)) int32 packed
-    words from ``pack_bits`` with c_dim = D. q_uv (Nq, 2), q_rad/q_slo/
-    q_shi (Nq,), c_uv (Nc, 2), c_size (Nc,) float32; c_valid (Nc,) bool.
-    Returns (best, idx, second): (Nq,) float32, int32, float32."""
+    {48, 64, 128}; or c_feat prepared once by ``pack_candidates``:
+    binary, (Nc, ceil(D/32)) int32 packed words with c_dim = D; float, a
+    ``FloatSet``. q_uv (Nq, 2), q_rad/q_slo/q_shi (Nq,), c_uv (Nc, 2),
+    c_size (Nc,) float32; c_valid (Nc,) bool. Returns (best, idx,
+    second): (Nq,) float32, int32, float32."""
     dev = q_feat.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"best_two: unsupported device {dev}")
-    args = (q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid)
+    prepared = isinstance(c_feat, FloatSet)
+    c_tensors = tuple(c_feat) if prepared else (c_feat,)
+    args = (q_feat, *c_tensors, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid)
     if any(t.device != dev for t in args):
         raise ValueError(f"best_two: inputs on {sorted({str(t.device) for t in args})}")
+    if prepared:
+        _check_float_set(q_feat, c_feat)
     if c_dim is not None and (q_feat.dtype != torch.uint8 or q_feat.shape[1] != c_dim
                               or c_feat.dtype != torch.int32 or c_feat.dim() != 2
                               or c_feat.shape[1] != _nwords(c_dim)):
         raise ValueError(f"best_two: packed candidates {c_feat.dtype} {tuple(c_feat.shape)} of "
                          f"{c_dim} bits for {q_feat.dtype} {tuple(q_feat.shape)} queries")
     if dev.type == "cpu":
-        best, idx, second = reference_best_two(*args, c_dim=c_dim)
+        best, idx, second = reference_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi,
+                                               c_size, c_valid, c_dim=c_dim)
         return best, idx.to(torch.int32), second
     nq, d = q_feat.shape
-    nc = c_feat.shape[0]
+    nc = c_tensors[0].shape[0]
     binary = q_feat.dtype == torch.uint8
     if binary and d not in _BIT_WIDTHS or not binary and (
             q_feat.dtype != torch.float32 or d not in _FLOAT_WIDTHS):
         raise ValueError(f"best_two: unsupported descriptors {q_feat.dtype} x {d}")
     f32 = torch.float32
     _check("q_feat", q_feat, q_feat.dtype, (nq, d))
-    if c_dim is None:
-        _check("c_feat", c_feat, q_feat.dtype, (nc, d))
-    else:
+    if c_dim is not None:
         _check("c_feat", c_feat, torch.int32, (nc, _nwords(d)))
-        if c_feat.data_ptr() % 16:
-            raise ValueError("best_two: packed candidate words must be 16-byte aligned")
+        _aligned("packed candidate words", c_feat, 16)
+    elif binary:
+        _check("c_feat", c_feat, torch.uint8, (nc, d))
+    else:
+        if not prepared:
+            _check("c_feat", c_feat, f32, (nc, d))
+            c_feat = prepare_float(c_feat)
+        _check("candidate rows", c_feat.rows, f32, (nc, d))
+        _check("candidate norms", c_feat.norms, f32, (nc,))
+        for name, t in (("q_feat", q_feat), ("candidate rows", c_feat.rows)):
+            _aligned(name, t, 16)
+        _aligned("c_uv", c_uv, 8)
     _check("q_uv", q_uv, f32, (nq, 2))
     for name, t in (("q_rad", q_rad), ("q_slo", q_slo), ("q_shi", q_shi)):
         _check(name, t, f32, (nq,))
@@ -211,8 +264,8 @@ def best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_valid, c
             err = lib.best_two_bits(q_feat.data_ptr(), c_feat.data_ptr(), nq, nc, d,
                                     _nwords(d), *side, stream)
         else:
-            err = lib.best_two_f32(q_feat.data_ptr(), c_feat.data_ptr(), nq, nc, d,
-                                   *side, stream)
+            err = lib.best_two_f32(q_feat.data_ptr(), c_feat.rows.data_ptr(),
+                                   c_feat.norms.data_ptr(), nq, nc, d, *side, stream)
     if err != 0:
         raise RuntimeError(f"best_two kernel launch failed: CUDA error {err}")
     best_two.launches += 1

@@ -32,10 +32,12 @@ def hamming_matrix(bits_a, bits_b):
     return a.sum(-1)[:, None] + b.sum(-1)[None, :] - 2.0 * (a @ b.T)
 
 
-def l2sq_matrix(a, b):
-    """(N, D) x (M, D) float32 -> (N, M) squared L2 distances."""
+def l2sq_matrix(a, b, nb=None):
+    """(N, D) x (M, D) float32 -> (N, M) squared L2 distances. nb: b's
+    squared norms, where the caller has them (cuda_match.FloatSet)."""
     na = torch.sum(a * a, dim=-1)
-    nb = torch.sum(b * b, dim=-1)
+    if nb is None:
+        nb = torch.sum(b * b, dim=-1)
     return torch.clamp(na[:, None] + nb[None, :] - 2.0 * (a @ b.T), min=0.0)
 
 
@@ -122,15 +124,20 @@ def guided_best_two(q_feat, c_feat, q_uv, c_uv, q_rad, q_slo, q_shi, c_size, c_v
     """Masked best/second-best search: kernel K2 for CUDA tensors (every
     call, no size threshold), its plain twin for CPU tensors. Side inputs
     are brought to the kernel's float32 / bool layout here. c_words:
-    optional ``cuda_match.pack_bits(c_feat)``, packed once by a caller whose
-    searches share the candidates; the search then takes them in place of
+    optional ``cuda_match.pack_candidates(c_feat)`` (binary: packed words;
+    float: a FloatSet of rows and norms), prepared once by a caller whose
+    searches share the candidates; the search then takes it in place of
     c_feat."""
     f32 = torch.float32
     c_dim = None
-    if c_words is not None:
-        c_feat, c_dim = c_words, c_feat.shape[1]
+    if isinstance(c_words, cuda_match.FloatSet):
+        c_feat = c_words
+    elif c_words is not None:
+        c_feat, c_dim = c_words.contiguous(), c_feat.shape[1]
+    else:
+        c_feat = c_feat.contiguous()
     return cuda_match.best_two(
-        q_feat.contiguous(), c_feat.contiguous(),
+        q_feat.contiguous(), c_feat,
         q_uv.to(f32).contiguous(), c_uv.to(f32).contiguous(),
         q_rad.to(f32).contiguous(), q_slo.to(f32).contiguous(),
         q_shi.to(f32).contiguous(), c_size.to(f32).contiguous(),

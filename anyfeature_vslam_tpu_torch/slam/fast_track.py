@@ -4,9 +4,9 @@
 keypoint undistortion and ``fused_track_step``: the motion-model guided
 search with a reference-keyframe fallback, the local-map search, and up to
 three motion-only pose LMs (reference Tracking.cc:619-836). Every guided
-search is a launch of kernel K2 on the card; a binary frame's descriptors
-are packed once (``cuda_match.pack_candidates``) for the three searches
-over them, a float frame's are searched as they are.
+search is a launch of kernel K2 on the card; a frame's descriptors are
+prepared once (``cuda_match.pack_candidates``: binary ones packed, float
+ones with their norms) for the three searches over them.
 
 The JAX package runs the frame as one XLA program with two ``lax.cond``s.
 Here it runs eagerly; the motion branch is a Python ``if`` on
@@ -93,7 +93,7 @@ def fused_track_step(
     if isinstance(use_motion, torch.Tensor):
         use_motion = bool(use_motion.item())
     # the candidates of the motion search, its retry and the local-map
-    # search, packed once (binary families)
+    # search, prepared once
     f_words = cuda_match.pack_candidates(f_bits)
 
     ok_a = False

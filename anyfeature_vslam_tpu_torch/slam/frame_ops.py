@@ -4,11 +4,11 @@ anyfeature_vslam_tpu/slam/frame_ops.py, monocular part).
 Every guided search goes through ``matching.guided_best_two``, so on the
 card each one is a launch of kernel K2: the tracked frame's searches, the
 initialization search, the fusion searches, and the relocalization and
-loop-closing searches. The searches over one binary keypoint set take
-``f_words``, its descriptors packed once by the caller
-(``cuda_match.pack_candidates``); without them the search packs its
-candidates itself, one more launch. Float candidates (None words) are
-searched as they are. The triangulation search is a dense masked Hamming
+loop-closing searches. The searches over one keypoint set take
+``f_words``, its descriptors prepared once by the caller
+(``cuda_match.pack_candidates``: binary ones packed, float ones with
+their norms); without them the search prepares its candidates itself.
+The triangulation search is a dense masked Hamming
 (binary) or squared-L2 (float) matrix, as in the JAX package. Frustum
 check: Frame::isInFrustum (reference src/Frame.cc:276-331); searches:
 SearchByProjection and its frame-to-frame form (reference
@@ -250,7 +250,7 @@ def fuse_points_into_targets(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_ref
     SearchInNeighbors, src/LocalMapping.cc:475-555, calling Fuse,
     src/FeatureMatcher.cc:794-942): a loop of T searches, each one K2
     launch on the card. The target inputs are sequences of T per-keyframe
-    tensors (f_words_t: their packed descriptors, if the caller has them);
+    tensors (f_words_t: their prepared descriptors, if the caller has them);
     pt_valid_t is (T, P). Returns (idx (T, P), valid (T, P))."""
     idx_t, valid_t = [], []
     for j in range(len(f_uv_t)):
@@ -273,7 +273,7 @@ def fuse_target_points_into_kf(pt_pos_t, pt_normal_t, pt_min_dist_t, pt_max_dist
     """The reverse fuse direction (reference SearchInNeighbors second half,
     src/LocalMapping.cc:516-545): T neighbor keyframes' point sets, each
     (T, P, ...), projected into one keyframe, one K2 launch per neighbor on
-    the card, all on the keyframe's descriptors packed once. Returns (idx
+    the card, all on the keyframe's descriptors prepared once. Returns (idx
     (T, P), valid (T, P))."""
     if f_words is None:
         f_words = cuda_match.pack_candidates(f_bits)
@@ -294,7 +294,7 @@ def match_descriptors_global(bits_q, valid_q, angle_q, bits_c, valid_c, angle_c,
                              match_th, ratio, words_c=None):
     """Unconstrained descriptor matching with ratio + rotation consistency
     (stands in for SearchByBoW, reference src/FeatureMatcher.cc:186-283).
-    words_c: the candidates' packed descriptors, if the caller has them."""
+    words_c: the candidates' prepared descriptors, if the caller has them."""
     dev = bits_q.device
     nq, nc = bits_q.shape[0], bits_c.shape[0]
     zuv = torch.zeros((nq, 2), device=dev)
@@ -316,8 +316,8 @@ def match_descriptors_to_many(bits_q, valid_q, angle_q, bits_c, valid_c, angle_c
     the reference loops SearchByBoW per candidate, src/Tracking.cc:1190-1210,
     the JAX package vmaps ``match_descriptors_global``): one K2 launch per
     candidate on the card. bits_c, valid_c, angle_c: sequences of C
-    per-keyframe tensors; words_c: their packed descriptors where the
-    caller has them (else each search packs its candidates). Returns
+    per-keyframe tensors; words_c: their prepared descriptors where the
+    caller has them (else each search prepares its candidates). Returns
     dict(idx, dist, valid), each (C, Nq)."""
     out = [match_descriptors_global(bits_q, valid_q, angle_q, bits_c[i], valid_c[i], angle_c[i],
                                     match_th, ratio, None if words_c is None else words_c[i])

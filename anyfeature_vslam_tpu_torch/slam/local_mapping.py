@@ -254,8 +254,9 @@ class LocalMapper:
     _DEV_FIELDS = ("uv", "bits", "size", "valid", "inv_sigma2", "angle")
 
     def _cache(self, kf: int, ent: dict):
-        """Pack the descriptors and cache the entry with its hand-off (the
-        tensors were produced on the current stream)."""
+        """Prepare the descriptors (``words``: packed, or float rows with
+        their norms) and cache the entry with its hand-off (the tensors
+        were produced on the current stream)."""
         ent["words"] = cuda_match.pack_candidates(ent["bits"])
         self._dev_kf[int(kf)] = (int(self.map.kf_uid[kf]), ent, streams.Handoff(ent.values()))
 
@@ -267,7 +268,7 @@ class LocalMapper:
 
     def kf_dev(self, kf: int) -> dict:
         """The keyframe's feature tensors on the device (uploaded from the
-        map on first use), plus its packed descriptors (``words``), ready
+        map on first use), plus its prepared descriptors (``words``), ready
         for the current stream."""
         kf = int(kf)
         uid = int(self.map.kf_uid[kf])

@@ -80,7 +80,7 @@ class LoopCloser:
     """Synchronous loop closing over a SlamMap. cam: anything with fx, fy,
     cx, cy, width, height (numbers or 0-d tensors); database: the
     KeyFrameDatabase; kf_dev: optional keyframe -> feature tensors on the
-    device with packed descriptors (``LocalMapper.kf_dev``), else each
+    device with prepared descriptors (``LocalMapper.kf_dev``), else each
     keyframe's features are uploaded from the map when searched."""
 
     def __init__(self, slam_map, cam, database, match_th: float = 75.0, seed: int = 0,

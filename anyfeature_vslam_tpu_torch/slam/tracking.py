@@ -1002,7 +1002,7 @@ class Tracker:
         cands = cands[:RELOC_MAX_CANDIDATES]
         if not cands:
             return False
-        # one K2 search per candidate, on its descriptors packed once and
+        # one K2 search per candidate, on its descriptors prepared once and
         # cached with its features (LocalMapper.kf_dev)
         has = np.stack([(m.kf_matches[kf] >= 0) & m.kf_feat_valid[kf] for kf in cands])
         if self.kf_dev is not None:

@@ -40,10 +40,13 @@ def new_stream(device):
 
 class Handoff:
     """Tensors produced on the current stream, for readers on any stream
-    (None entries are skipped)."""
+    (None entries are skipped; a tuple, such as a prepared candidate set,
+    counts as its tensors)."""
 
     def __init__(self, tensors):
-        self.tensors = [t for t in tensors if t is not None and t.is_cuda]
+        flat = (x for t in tensors if t is not None
+                for x in (t if isinstance(t, tuple) else (t,)))
+        self.tensors = [t for t in flat if t.is_cuda]
         self.event = None
         self._readers = set()
         if self.tensors:

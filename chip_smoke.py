@@ -13,8 +13,12 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
      launch, against its plain PyTorch twin: bit-exact;
   3. pack_bits at every binary width and K2 (masked best/second) on random
      binary 4096x1000 and 1000x1000 searches against their twins: exact;
-     the float path on unit rows (D = 48, 128) to atol 1e-5, the index
-     equal wherever best and second lie further apart;
+     the float search on unit rows (D = 48, 64, 128; 1000x1000,
+     2000x2000, 4096x1000, 700x5000), with random windows and with none,
+     on a prepared candidate set: within atol 1e-5 of the twin, the index
+     equal wherever best and second lie further apart, one launch each;
+     device (profiled), eager, graph, twin and bound times and the pass
+     share;
   4. the slice on a small input (320x240) on the card against the same
      code on the CPU (plain twins);
   5. the slice: fused_extract_track over 25 tracked frames of the rendered
@@ -88,9 +92,11 @@ relocalization and loop searches.
      phase 8's 48 frames: 0 resets, >= 45 tracked, keyframe ATE < 2 cm,
      K1 once per frame (once more for a rebuilt initialization), K2 from
      the init, tracking and fusion searches (pack_bits for the binary
-     families only), ms per frame with and
-     without an event; K2 against its twin at the recorded init, tracking
-     and fusion searches (binary: exact; float: within 1e-5, equal indices
+     families only), ms per frame with and without an event; K2 against
+     its twin at the recorded init search, the tracked frame's
+     reference-keyframe search (no window) and one of its windowed
+     (motion-model or local-map) searches, and a fusion search, each
+     with its launches (binary: exact; float: within 1e-5, equal indices
      where best and second lie further apart).
 
 The launch counters are set to 0 before phases 5, 8, 9, 10, 11, 12 and
@@ -195,6 +201,7 @@ def graph_ms(torch, fn, reps=20):
 # per compare, min/max, xor or popcount.
 PROFILED_KERNELS = ("fast_nms_kernel", "pack_bits_kernel", "best_two_bits_kernel",
                     "best_two_f32_kernel")
+K2_KERNELS = ("best_two_bits_kernel", "best_two_f32_kernel")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
@@ -235,10 +242,10 @@ def profile_kernels(torch, fn):
     from anyfeature_vslam_tpu_torch.frontend import cuda_fast
     from anyfeature_vslam_tpu_torch.ops import cuda_match
 
-    # each wrapper's launches against its kernels' events (K2: both paths)
+    # each wrapper's launches against its kernels' events (K2: binary and float)
     wrappers = {("fast_nms_kernel",): cuda_fast.fast_nms,
                 ("pack_bits_kernel",): cuda_match.pack_bits,
-                ("best_two_bits_kernel", "best_two_f32_kernel"): cuda_match.best_two}
+                K2_KERNELS: cuda_match.best_two}
     for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         pad = torch.ones(1, device="cuda")
@@ -299,11 +306,12 @@ def k1_work(torch, levels, threshold):
 def k2_work(args, packed_candidates):
     """Bytes and operations of one K2 search: inputs read once (binary:
     query bit planes, candidate bit planes or packed words; float: 4 B
-    per element of both; 20 B of gate data per query and 13 per
-    candidate), 12 B written per query; 8 gate operations per pair, and
-    per pair that passes an xor and a popcount per word (binary) or a
-    multiply and an add per element and 4 more for the distance (float),
-    plus 2 D for each float row's norm."""
+    per element of both, and 4 B per candidate norm where the set comes
+    prepared; 20 B of gate data per query and 13 per candidate), 12 B
+    written per query; 8 gate operations per pair, and per pair that
+    passes an xor and a popcount per word (binary) or a multiply and an
+    add per element and 4 more for the distance (float), plus 2 D for each
+    float query's norm and each raw candidate row's."""
     from anyfeature_vslam_tpu_torch.ops.cuda_match import gate_mask
 
     q, c, *side = args
@@ -311,8 +319,9 @@ def k2_work(args, packed_candidates):
     nc = c.shape[0]
     passes = int(gate_mask(*side).sum())
     if q.dtype.is_floating_point:
-        nbytes = 4 * d * (nq + nc) + 32 * nq + 13 * nc
-        return nbytes, 8 * nq * nc + (2 * d + 4) * passes + 2 * d * (nq + nc), passes
+        nbytes = 4 * d * (nq + nc) + 32 * nq + 13 * nc + (4 * nc if packed_candidates else 0)
+        norms = 2 * d * (nq + (0 if packed_candidates else nc))
+        return nbytes, 8 * nq * nc + (2 * d + 4) * passes + norms, passes
     nwords = (d + 31) // 32
     c_bytes = nc * nwords * 4 if packed_candidates else nc * d
     nbytes = nq * d + 32 * nq + c_bytes + 13 * nc
@@ -367,8 +376,9 @@ def measure_k2(torch, a, kw, label):
     kernel = "best_two_bits_kernel" if binary else "best_two_f32_kernel"
     n_match = dk[kernel][0] / reps
     n_pack = dk["pack_bits_kernel"][0] / reps
-    if n_match < 1:
-        raise AssertionError(f"K2 at the {label} search: no search kernel was launched")
+    if n_match != 1:
+        raise AssertionError(f"K2 at the {label} search: {n_match:g} launches of {kernel} "
+                             "per search")
     d_ms = dk[kernel][1] / reps
     d_pack_ms = dk["pack_bits_kernel"][1] / reps
     nq, nc = a[0].shape[0], a[1].shape[0]
@@ -376,8 +386,9 @@ def measure_k2(torch, a, kw, label):
     log(f"[K2 real] {label} {nq}x{nc} D={a[0].shape[1]} {a[0].dtype}: {agreement} "
         f"({int((i >= 0).sum())} matched, {passes} pairs "
         f"pass the gates, {100 * passes / (nq * nc):.3f}%); {n_match:g} search + {n_pack:g} "
-        f"pack launches; device search {d_ms:.5f} ms + pack {d_pack_ms:.5f} ms; eager "
-        f"{e_ms:.4f} ms, graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        f"pack launches; device search {d_ms:.5f} ms ({kernel}) + pack {d_pack_ms:.5f} ms; "
+        f"eager {e_ms:.4f} ms, graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
     return dict(label=label, nq=nq, nc=nc, passes=passes, max_abs_err=err, eager_ms=e_ms,
                 graph_ms=g_ms, plain_ms=p_ms, device_ms=d_ms, pack_device_ms=d_pack_ms,
                 bound_ms=b_ms, bound_by=b_by)
@@ -483,7 +494,9 @@ class SystemProbe:
     that has queries and candidates), the inputs of the init
     searches, of the fusion searches of keyframe event RECORDED_EVENT and
     of the first RECORD_FIRST tracking, relocalization and loop searches kept in
-    `record` by label, keyframe events timed (ms, K2 and pack launches, host
+    `record` by label, the tracked frame's reference-keyframe searches (no
+    window) counted apart in `k2_reference` (they are also "tracking"
+    launches), keyframe events timed (ms, K2 and pack launches, host
     syncs when `sync_sites` is counting), and where each pending BA fold
     landed (`folds`: at the next event, at the tracker's interrupt, in the
     loop stage, on the watcher thread, at the final drain). With
@@ -500,6 +513,7 @@ class SystemProbe:
         self._tls = threading.local()
         self._lock = threading.Lock()
         self.k2_by_label = {}
+        self.k2_reference = 0
         self.events = []
         self.folds = {}
         self._patched = []
@@ -584,6 +598,21 @@ class SystemProbe:
             return out
         return inner
 
+    def _reference(self, fn):
+        from anyfeature_vslam_tpu_torch.ops import cuda_match
+
+        # match_descriptors_global under the "tracking" label is the tracked
+        # frame's reference-keyframe search (relocalization and loop closing
+        # call it under their own labels)
+        def inner(*a, **kw):
+            n0 = cuda_match.thread_launches()
+            out = fn(*a, **kw)
+            if self.label == "tracking":
+                with self._lock:
+                    self.k2_reference += cuda_match.thread_launches() - n0
+            return out
+        return inner
+
     def _event_wrap(self, fn):
         def inner(kf):
             n0 = [c.launches for c in self.counters]
@@ -615,6 +644,7 @@ class SystemProbe:
                 (LoopCloser, "_search_and_fuse", "loop_fuse")):
             self._patch(owner, name, self._labelled(tag))
         self._patch(matching, "guided_best_two", self._recorder)
+        self._patch(frame_ops, "match_descriptors_global", self._reference)
         self._patch(LocalMapper, "process_keyframe", self._fold_site("next event"))
         self._patch(LoopCloser, "process_keyframe", self._fold_site("loop stage"))
         sysm = self.system
@@ -1503,13 +1533,18 @@ def family_phase(torch, device, feature, frames):
     detection at every event) over frames: 0 resets, >= 45 tracked,
     keyframe ATE < MAX_FAMILY_ATE_M; K1 once per frame (once more for a
     rebuilt initialization), K2 from the init, tracking and fusion
-    searches; K2 held against its twin at the recorded
-    inputs of the init search, one tracking search and one fusion search.
-    Counts set to 0 just before the System run, read just after. Returns
-    (K1 launches, K1 max abs err, pack launches, K2 rows by search)."""
+    searches; K2 held against its twin at the recorded inputs of the init
+    search, the tracked frame's reference-keyframe search (no window), one
+    of its windowed searches (motion model or local map, the one with the
+    most active queries) and one fusion search, each row with the
+    launches of its kind. Counts set to 0 just before the System run,
+    read just after. Returns (K1 launches, K1 max abs err, pack launches,
+    K2 rows by search)."""
     import numpy as np
 
     from torch_slice_scene import FIRST_TRACKED
+
+    from anyfeature_vslam_tpu_torch.ops import cuda_match
 
     k1_err = family_extraction(torch, device, feature, frames[FIRST_TRACKED])
     counters = _counters()
@@ -1518,12 +1553,13 @@ def family_phase(torch, device, feature, frames):
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    system, rows, events, sc, k2_by, _ = system_run(
+    system, rows, events, sc, k2_by, probe = system_run(
         torch, W, H, len(frames), device, record=recorded, frames=frames, sync=False,
         feature=feature)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, pack = (c.launches for c in counters)
+    k2_ref = probe.k2_reference
     stats = system.tracker.stats
     kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
     plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
@@ -1542,7 +1578,8 @@ def family_phase(torch, device, feature, frames):
         f"{len(events)} events")
     loop_stage_line(system, feature)
     log(f"[{feature}] launches: K1 {k1} ({len(rows)} frames), K2 {k2} (by search "
-        f"{json.dumps(k2_by)}), pack {pack}")
+        f"{json.dumps(k2_by)}; {k2_ref} of the tracking ones reference-keyframe searches), "
+        f"pack {pack}")
     fail = []
     if stats["resets"] != 0:
         fail.append(f"{stats['resets']} resets")
@@ -1559,6 +1596,9 @@ def family_phase(torch, device, feature, frames):
         fail.append("K1 not launched once per frame (and once per reinitialization)")
     if not all(k2_by.get(k, 0) > 0 for k in FAMILY_SEARCHES) or sum(k2_by.values()) != k2:
         fail.append("K2 not launched by each of the init, tracking and fusion searches")
+    if not 0 < k2_ref < k2_by.get("tracking", 0):
+        fail.append(f"{k2_ref} reference-keyframe searches of {k2_by.get('tracking', 0)} "
+                    "tracking searches")
     binary = np.dtype(system.map.desc_dtype) == np.uint8
     if binary != (pack > 0):
         fail.append(f"{pack} pack_bits launches with {np.dtype(system.map.desc_dtype).name} "
@@ -1566,16 +1606,31 @@ def family_phase(torch, device, feature, frames):
     if fail:
         raise AssertionError(f"[{feature}] the family's System phase failed: {fail}")
     del system
-    k2_rows = {}
     for label in FAMILY_SEARCHES:
         if label not in recorded:
             raise AssertionError(f"[{feature}] no {label} search was recorded")
-        calls = recorded[label]
-        a, kw = calls[-1] if label == "init" else max(
-            calls, key=lambda c: int((c[0][4] >= 0).sum()))
+
+    def active(call):
+        return int((call[0][4] >= 0).sum())
+
+    def unwindowed(call):  # every active query at radius INF
+        rad = call[0][4]
+        return bool((rad >= 0).any()) and bool((rad[rad >= 0] >= cuda_match.INF).all())
+
+    track = recorded["tracking"]
+    kinds = {"init": (recorded["init"][-1:], k2_by["init"]),
+             "tracking_reference": ([c for c in track if unwindowed(c)], k2_ref),
+             "tracking_windowed": ([c for c in track if not unwindowed(c)],
+                                   k2_by["tracking"] - k2_ref),
+             "fusion": (recorded["fusion"], k2_by["fusion"])}
+    k2_rows = {}
+    for label, (calls, launches) in kinds.items():
+        if not calls:
+            raise AssertionError(f"[{feature}] no {label} search was recorded")
+        a, kw = max(calls, key=active)
         k2_rows[label] = measure_k2(
-            torch, a, kw, f"{feature} {label} search ({int((a[4] >= 0).sum())} active queries)")
-        k2_rows[label]["launches"] = k2_by[label]
+            torch, a, kw, f"{feature} {label} search ({active((a, kw))} active queries)")
+        k2_rows[label]["launches"] = launches
     return dict(k1=k1, k1_err=k1_err, pack=pack, k2_rows=k2_rows)
 
 
@@ -1716,17 +1771,22 @@ def main() -> int:
         log(f"[K2] binary {nq}x{nc} random: exact ({int((i >= 0).sum())} matched, "
             f"{int(cuda_match.gate_mask(*args[2:]).sum())} pairs pass the gates); eager {k_ms:.4f} ms, "
             f"graph {g_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    for dim in (48, 128):
-        args = k2_case(1000, 1000, False, dim)
-        b, i, s = cuda_match.best_two(*args)
-        rb, ri, rs = cuda_match.reference_best_two(*args)
-        torch.cuda.synchronize()
-        agrees, f_err = k2_agrees(torch, (b, i, s), (rb, ri, rs), False)
-        if not agrees:
-            raise AssertionError(f"K2 float 1000x1000 D={dim}: max abs err {f_err}, "
-                                 f"{int((i.long() != ri).sum())} idx differ")
-        log(f"[K2] float 1000x1000 D={dim} unit rows random: max abs err {f_err:.3g} "
-            f"(atol {FLOAT_ATOL:g}), {int((i >= 0).sum())} matched")
+    # the float search with random windows (as k2_case) and with none (as
+    # the reference-keyframe search), every width, at the System's and the
+    # local map's shapes and past the staging limit
+    for dim in (48, 64, 128):
+        for nq, nc in ((1000, 1000), (2000, 2000), (4096, 1000), (700, 5000)):
+            args = k2_case(nq, nc, False, dim)
+            for window in (True, False):
+                a = list(args)
+                if not window:
+                    a[4] = torch.full_like(a[4], cuda_match.INF)
+                    a[5] = torch.zeros_like(a[5])
+                    a[6] = torch.full_like(a[6], cuda_match.INF)
+                kw = dict(c_words=cuda_match.pack_candidates(a[1]))
+                row = measure_k2(torch, a, kw,
+                                 f"phase 3 float {'windowed' if window else 'no window'}")
+                k2_err = max(k2_err, row["max_abs_err"])
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 4 begins")
     # ---- 4. the slice on a small input: card vs the CPU port

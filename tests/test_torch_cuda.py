@@ -4,8 +4,12 @@ on the card's machine, which has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-K1 and binary K2 must be exact; float K2 distances are fp32 sums in
-another order (atol 1e-2, as tests/test_pallas_match.py).
+K1 and binary K2 must be exact. Float K2 on unit rows (as the learned48
+descriptors are) must be within FLOAT_ATOL = 1e-5 of its twin, best and
+second, with the index equal wherever best and second lie further apart:
+the kernel sums q.c in fp32 in another order. Float searches run with
+their random windows and with none (radius INF, every valid pair passes,
+as the reference-keyframe search).
 """
 
 import numpy as np
@@ -126,17 +130,98 @@ def test_best_two_binary_kernel_is_exact(cuda, dim, nq, nc):
     assert cuda_match.best_two.launches == before + 1
 
 
-@pytest.mark.parametrize("dim", [48, 64, 128])
-@pytest.mark.parametrize("nq,nc", [(1, 1), (100, 300), (1000, 1000)])
-def test_best_two_float_kernel_matches(cuda, dim, nq, nc):
-    args = _case(cuda, nq, nc, dim, False)
-    b, i, s = cuda_match.best_two(*args)
-    rb, ri, rs = cuda_match.reference_best_two(*args)
+FLOAT_ATOL = 1e-5
+
+
+def _float_case(dev, nq, nc, dim, seed=0, window=True):
+    """_case with unit rows; every other candidate row duplicates an
+    earlier one (exact ties). window=False: no window (radius INF, no
+    size band)."""
+    args = list(_case(dev, nq, nc, dim, False, seed))
+    for k in (0, 1):
+        args[k] = args[k] / torch.linalg.norm(args[k], dim=1, keepdim=True)
+    half = nc // 2
+    for k in (1, 3, 7, 8):
+        args[k][half:2 * half] = args[k][:half]
+    if not window:
+        args[4] = torch.full_like(args[4], cuda_match.INF)
+        args[5] = torch.zeros_like(args[5])
+        args[6] = torch.full_like(args[6], cuda_match.INF)
+    return args
+
+
+def _assert_float_close(got, want):
+    (b, i, s), (rb, ri, rs) = got, want
     torch.cuda.synchronize()
-    torch.testing.assert_close(b, rb, rtol=1e-4, atol=1e-2)
-    torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-2)
-    near_tie = (rs - rb) < 1e-2
-    assert not bool(((i.long() != ri) & ~near_tie).any())
+    assert float((b - rb).abs().max()) <= FLOAT_ATOL
+    assert float((s - rs).abs().max()) <= FLOAT_ATOL
+    clear = (rs - rb) > FLOAT_ATOL
+    assert torch.equal(i.long()[clear], ri[clear])
+
+
+def _assert_float_search(args):
+    """One launch on the prepared set, within FLOAT_ATOL of the twin, and
+    the same result from raw rows (which the search prepares itself)."""
+    fs = cuda_match.pack_candidates(args[1])
+    before = cuda_match.best_two.launches
+    got = cuda_match.best_two(args[0], fs, *args[2:])
+    assert cuda_match.best_two.launches == before + 1
+    _assert_float_close(got, cuda_match.reference_best_two(*args))
+    raw = cuda_match.best_two(*args)
+    for x, y in zip(got, raw):
+        assert torch.equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize("window", [True, False])
+@pytest.mark.parametrize("dim", [48, 64, 128])
+@pytest.mark.parametrize("nq,nc", [(1, 1), (7, 300), (300, 257), (1000, 1000), (2000, 2000),
+                                   (4096, 1000)])
+def test_best_two_float_kernel_matches(cuda, dim, nq, nc, window):
+    _assert_float_search(_float_case(cuda, nq, nc, dim, window=window))
+
+
+@pytest.mark.parametrize("window", [True, False])
+@pytest.mark.parametrize("dim", [48, 128])
+def test_best_two_float_tiled_candidates(cuda, dim, window):
+    # more candidates than the search stages whole (double-buffered gate
+    # tiles of 1024)
+    _assert_float_search(_float_case(cuda, 700, 5000, dim, seed=1, window=window))
+
+
+@pytest.mark.parametrize("window", [True, False])
+@pytest.mark.parametrize("nq", [1, 16, 17, 528, 529, 1056, 1057, 2112, 2113, 4096, 8200])
+def test_best_two_float_queries_per_block_boundaries(cuda, nq, window):
+    # a query's candidates over 8, 4, 2, 1 warps up to 528, 1056, 2112
+    # queries and above (csrc/best_two.cu, launch_f32_split)
+    _assert_float_search(_float_case(cuda, nq, 1000, 64, seed=2, window=window))
+
+
+@pytest.mark.parametrize("dim", [48, 64, 128])
+def test_best_two_float_duplicates_at_radius_inf(cuda, dim):
+    args = _float_case(cuda, 2048, 3000, dim, seed=3, window=False)
+    b, i, s = _assert_float_search(args)
+    ok = i >= 0
+    assert bool(ok.all()) and bool((i < 1500).all()) and bool((s == b).all())
+
+
+@pytest.mark.parametrize("window", [True, False])
+def test_best_two_float_no_candidates_and_bad_input(cuda, window):
+    args = _float_case(cuda, 64, 100, 48, window=window)
+    args[8] = torch.zeros_like(args[8])
+    b, i, s = _assert_float_search(args)
+    assert bool((i == -1).all()) and bool((b == cuda_match.INF).all())
+    assert bool((s == cuda_match.INF).all())
+    fs = cuda_match.pack_candidates(args[1])
+    with pytest.raises(ValueError):  # norms of another set
+        cuda_match.best_two(args[0], cuda_match.FloatSet(fs.rows, fs.norms[:-1]), *args[2:])
+    with pytest.raises(ValueError):  # rows of another width
+        cuda_match.best_two(args[0][:, :32].contiguous(), fs, *args[2:])
+    before = cuda_match.best_two.launches
+    empty = cuda_match.best_two(args[0], cuda_match.pack_candidates(args[1][:0]),
+                                *args[2:3], args[3][:0], *args[4:7], args[7][:0], args[8][:0])
+    assert cuda_match.best_two.launches == before
+    assert bool((empty[1] == -1).all()) and bool((empty[0] == cuda_match.INF).all())
 
 
 def test_best_two_kernel_no_candidates_and_bad_input(cuda):

@@ -227,3 +227,76 @@ def test_guided_best_two_takes_words_in_place_of_candidates():
         cuda_match.best_two(args[0], words, *args[2:], c_dim=384)
     with pytest.raises(ValueError):      # bit planes where words are expected
         cuda_match.best_two(args[0], args[1], *args[2:], c_dim=256)
+
+
+# ------------------------------------------------- prepared float candidates
+
+def _unit_case(rng, nq, nc, dim):
+    """Float descriptors of unit length, as the learned48 rows are."""
+    args = _case(rng, nq, nc, False, dim=dim)
+    for k in (0, 1):
+        args[k] /= np.linalg.norm(args[k], axis=1, keepdims=True)
+    return args
+
+
+def _equal(got, want):
+    for x, y in zip(got, want):
+        assert torch.equal(x.to(y.dtype), y)
+
+
+@pytest.mark.parametrize("dim", [48, 64, 128])
+def test_float_prepared_set_equals_raw_rows_and_jax(dim):
+    args = _unit_case(np.random.default_rng(dim), 90, 200, dim)
+    targs = list(map(torch.from_numpy, args))
+    fs = cuda_match.pack_candidates(targs[1])
+    assert isinstance(fs, cuda_match.FloatSet)
+    assert torch.equal(fs.rows, targs[1])
+    # the twin's own norms (matching.l2sq_matrix), bit for bit
+    assert torch.equal(fs.norms, torch.sum(targs[1] * targs[1], dim=-1))
+    raw = cuda_match.reference_best_two(*targs)
+    _equal(cuda_match.reference_best_two(targs[0], fs, *targs[2:]), raw)
+    _equal(cuda_match.best_two(targs[0], fs, *targs[2:]), raw)
+    _equal(tmatch.guided_best_two(*targs, c_words=fs), raw)
+    got = [t.numpy() for t in raw]
+    assert (got[1] >= 0).sum() > 40
+    _assert_same(got, _jax(args), False)
+    _assert_same(got, _jax(args, fused=True), False)
+    assert cuda_match.best_two.launches == 0
+
+
+def test_float_ties_take_lowest_index_in_both_packages():
+    rng = np.random.default_rng(9)
+    args = _unit_case(rng, 40, 96, 48)
+    for k in (1, 3, 7, 8):                # every candidate twice: exact ties
+        args[k][48:] = args[k][:48]
+    args[4][:] = 1e9
+    targs = list(map(torch.from_numpy, args))
+    fs = cuda_match.pack_candidates(targs[1])
+    got = [t.numpy() for t in cuda_match.best_two(targs[0], fs, *targs[2:])]
+    _assert_same(got, _jax(args), False)
+    _assert_same(got, _jax(args, fused=True), False)
+    b, i, s = got
+    assert (i >= 0).all() and (i < 48).all() and (s == b).all()
+
+
+@pytest.mark.parametrize("fault", ["width", "norm_count", "row_dtype", "norm_dtype",
+                                   "binary_queries"])
+def test_inconsistent_float_set_raises(fault):
+    targs = list(map(torch.from_numpy, _unit_case(np.random.default_rng(10), 20, 50, 64)))
+    rows, norms = cuda_match.pack_candidates(targs[1])
+    q = targs[0]
+    if fault == "width":
+        fs = cuda_match.FloatSet(rows[:, :48].contiguous(), norms)
+    elif fault == "norm_count":
+        fs = cuda_match.FloatSet(rows, norms[:-1])
+    elif fault == "row_dtype":
+        fs = cuda_match.FloatSet(rows.double(), norms)
+    elif fault == "norm_dtype":
+        fs = cuda_match.FloatSet(rows, norms.double())
+    else:
+        fs = cuda_match.FloatSet(rows, norms)
+        q = (q > 0).to(torch.uint8)
+    with pytest.raises(ValueError):
+        cuda_match.best_two(q, fs, *targs[2:])
+    with pytest.raises(ValueError):
+        tmatch.guided_best_two(q, targs[1], *targs[2:], c_words=fs)
