@@ -1,5 +1,4 @@
-"""Feature extraction of the FAST families (port of
-anyfeature_vslam_tpu/frontend/extractor.py).
+"""Feature extraction (port of anyfeature_vslam_tpu/frontend/extractor.py).
 
 ``FeatureExtractor`` is the ``detector == "fast"`` branch of the JAX
 ``extract_features``: the pyramid, FAST + 3x3 NMS per level (kernel K1 on
@@ -11,13 +10,17 @@ one of four descriptors:
   bin512     anyfeat_bin     FREAK retina (ringdesc.py), raw level
   learned48  anyfeat_nonbin  IC angle + learned MLP (learned48.py), raw level
 
-then per-level budgets and ORB size normalisation. Its constants (resize
-matrices, Gaussian taps, the descriptor's sampling tables or matrices,
-moment matrix, MLP) are module state, so ``.to(device)`` moves them with
-the module. The other detectors (akaze61, kaze64, sift128, surf64) raise
-``NotImplementedError`` naming ROADMAP.md queue item 9. The registry and
-config are copied from the JAX package and held equal to it by a CPU
-test.
+then per-level budgets and ORB size normalisation. ``NonlinearExtractor``
+is its ``_extract_nonlinear`` branch (akaze61, kaze64): the FED nonlinear
+scale space and det(H) detection (nonlinear.py), then M-LDB 488 bits
+(mldb.py) or M-SURF 64-d floats (msurf.py) per evolution level; it runs
+no CUDA kernel. ``make_extractor`` builds the one a family needs. The
+constants (resize matrices, Gaussian taps, the descriptors' sampling
+tables and matrices, moment matrix, MLP) are module state, so
+``.to(device)`` moves them with the module. The other detectors (sift128,
+surf64) raise ``NotImplementedError`` naming ROADMAP.md queue item 9. The
+registry and config are copied from the JAX package and held equal to it
+by a CPU test.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from torch import nn
 
 from ..convert import learned48_from_numpy
-from . import brief, cuda_fast, learned48, orientation, pyramid, ringdesc, select
+from . import (brief, cuda_fast, learned48, mldb, msurf, nonlinear, orientation, pyramid,
+               ringdesc, select)
 
 ORB_MAX_SIZE = 1.2 ** 7
 
@@ -138,7 +142,7 @@ class FeatureExtractor(nn.Module):
         super().__init__()
         if cfg.detector != "fast" or cfg.descriptor not in _DESCRIPTORS:
             raise NotImplementedError(
-                f"the torch port extracts the FAST families (orb32, brisk48, anyfeat_bin, "
+                f"FeatureExtractor extracts the FAST families (orb32, brisk48, anyfeat_bin, "
                 f"anyfeat_nonbin) only; {cfg.detector} + {cfg.descriptor} is ROADMAP.md "
                 "queue item 9, 'The other feature families'"
             )
@@ -232,4 +236,133 @@ class FeatureExtractor(nn.Module):
 
 # the orb32 extractor's earlier name
 OrbExtractor = FeatureExtractor
+
+
+class NonlinearExtractor(nn.Module):
+    """akaze61 / kaze64 extraction for images of one size (the JAX
+    ``_extract_nonlinear``): the nonlinear scale space of image / 255,
+    det(H) maxima over space and the adjacent levels above
+    ``cfg.detect_th``, spread top-k per evolution level, then the main
+    orientation and M-LDB bits (akaze) or M-SURF floats (kaze). AKAZE
+    halves the resolution per octave; KAZE keeps it and describes octaves
+    >= 1 on Lx, Ly decimated by 2^octave. The stored ``octave`` is the
+    true octave (0..omax-1), which matching-level gates read; the size
+    comes from the evolution index (reference src/Feature_akaze61.cpp:
+    63-69). ``forward`` returns ``FeatureExtractor``'s dict."""
+
+    def __init__(self, cfg: ExtractorConfig, height: int, width: int):
+        super().__init__()
+        if cfg.detector not in _NONLINEAR:
+            raise ValueError(f"NonlinearExtractor takes the akaze / kaze detectors, not "
+                             f"{cfg.detector}")
+        self.cfg = cfg
+        self.height, self.width = height, width
+        self.downsample = cfg.detector == "akaze"
+        plans = nonlinear.plan_levels(height, width, cfg.n_levels, self.downsample)
+        # KAZE describes octave o >= 1 on maps decimated by f = 2^o
+        self.decimate = {}
+        if not self.downsample:
+            for p in plans:
+                f = 2 ** p.octave
+                if f > 1:
+                    self.decimate[p.index] = (f, max(height // f, 16), max(width // f, 16))
+        extra = {(n, m) for _, h2, w2 in self.decimate.values()
+                 for n, m in ((height, h2), (width, w2))}
+        self.consts = nonlinear.Constants(height, width, cfg.n_levels, self.downsample,
+                                          extra=extra)
+        # one set of descriptor matrices per distinct level scale (4 per family)
+        self.level_scale, self.level_key, keys = [], [], {}
+        for p in plans:
+            scale = p.sigma_rel if p.index not in self.decimate else (
+                p.sigma / self.decimate[p.index][0])
+            patch = (mldb.patch_radius if self.downsample else msurf.patch_radius)(scale)
+            k = (round(scale, 4), patch)
+            if k not in keys:
+                keys[k] = len(keys)
+                mats = mldb.tensors(scale) if self.downsample else msurf.tensors(scale)
+                for name, t in zip(("ori", "desc"), mats):
+                    self.register_buffer(f"{name}{keys[k]}", t)
+            self.level_scale.append(scale)
+            self.level_key.append(keys[k])
+        if self.downsample:
+            self.register_buffer("pairs", mldb.pair_indices())
+        else:
+            self.register_buffer("cell_w", msurf.cell_weight_tensor())
+        size = _normalized_size_np(cfg)  # by evolution index
+        budgets = cfg.level_budgets
+        self.register_buffer("octave", torch.from_numpy(np.concatenate(
+            [np.full(b, p.octave, np.int32) for p, b in zip(plans, budgets)])))
+        self.register_buffer("size", torch.from_numpy(np.concatenate(
+            [np.full(b, size[p.index], np.float32) for p, b in zip(plans, budgets)])))
+        self.register_buffer("up", torch.from_numpy(np.concatenate(
+            [np.full(b, 2.0 ** p.octave if self.downsample else 1.0, np.float32)
+             for p, b in zip(plans, budgets)])))
+
+    def describe(self, ev, xy, valid):
+        """(angle (n,), descriptors (n, D)) of one evolution level's
+        keypoints xy in level pixels."""
+        key = self.level_key[ev.index]
+        ori_m, desc_m = getattr(self, f"ori{key}"), getattr(self, f"desc{key}")
+        scale = self.level_scale[ev.index]
+        if self.downsample:
+            return mldb.describe_mldb(ev.L, ev.Lx, ev.Ly, xy, valid, scale, ori_m, desc_m,
+                                      self.pairs)
+        gx, gy, dxy = ev.Lx, ev.Ly, xy
+        if ev.index in self.decimate:
+            # decimate the (already sigma >= 2^o smoothed) derivative maps
+            # so the descriptor's sampling matrices stay bounded
+            f, h2, w2 = self.decimate[ev.index]
+            gx, gy = self.consts.resize(gx, h2, w2), self.consts.resize(gy, h2, w2)
+            dxy = xy / f
+        return msurf.describe_kaze(gx, gy, dxy, valid, scale, ori_m, desc_m, self.cell_w)
+
+    def forward(self, image):
+        return self.from_levels(self.levels(image))
+
+    def levels(self, image):
+        """The nonlinear scale space of an (H, W) float32 image in 0..255."""
+        img01 = image.reshape(self.height, self.width) * (1.0 / 255.0)
+        return nonlinear.build_evolution(img01, self.consts)
+
+    def from_levels(self, levels):
+        """The feature dict of ``forward`` from the scale space's levels."""
+        cfg = self.cfg
+        scores = nonlinear.detect_scores(levels, self.consts)
+        outs = {k: [] for k in ("xy", "resp", "angle", "desc_bits", "valid")}
+        for ev, smap, budget in zip(levels, scores, cfg.level_budgets):
+            smap = torch.where(smap > cfg.detect_th, smap, torch.zeros_like(smap))
+            # the border scales with the level's own resolution
+            border = max(cfg.border // (2 ** ev.octave if self.downsample else 1), 6)
+            xy, resp, valid = select.select_spread_topk(smap, budget, border)
+            ang, desc = self.describe(ev, xy, valid)
+            outs["xy"].append(xy)
+            outs["resp"].append(resp)
+            outs["angle"].append(ang)
+            outs["desc_bits"].append(desc)
+            outs["valid"].append(valid)
+        valid = torch.cat(outs["valid"])
+        sigma2 = self.size * self.size
+        return dict(
+            xy=torch.cat(outs["xy"]) * self.up[:, None],
+            resp=torch.cat(outs["resp"]),
+            octave=self.octave,
+            angle=torch.cat(outs["angle"]),
+            size=self.size,
+            sigma2=sigma2,
+            inv_sigma2=torch.where(valid, 1.0 / sigma2, torch.zeros_like(sigma2)),
+            desc_bits=torch.cat(outs["desc_bits"]),
+            valid=valid,
+        )
+
+
+_NONLINEAR = ("akaze", "kaze")
+
+
+def make_extractor(cfg: ExtractorConfig, height: int, width: int):
+    """The extractor of cfg's family: ``NonlinearExtractor`` for the akaze /
+    kaze detectors, else ``FeatureExtractor`` (which raises for families
+    not yet ported)."""
+    if cfg.detector in _NONLINEAR:
+        return NonlinearExtractor(cfg, height, width)
+    return FeatureExtractor(cfg, height, width)
 

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .. import perfcount, streams
-from ..frontend.extractor import ExtractorConfig, FeatureExtractor
+from ..frontend.extractor import ExtractorConfig, make_extractor
 from ..ops import camera as cam_ops
 from ..ops import initializer, pnp, pose_opt
 from . import fast_track, frame_ops
@@ -190,7 +190,7 @@ class Tracker:
 
         def extractor(n_features):
             # the family's extractor (families not yet ported raise here)
-            return FeatureExtractor(ExtractorConfig(
+            return make_extractor(ExtractorConfig(
                 n_features=n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
                 detect_th=cfg.detect_th, detector=cfg.detector, descriptor=cfg.descriptor),
                 h, w).to(self.device)

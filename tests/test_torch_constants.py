@@ -14,6 +14,9 @@ import torch
 from anyfeature_vslam_tpu.frontend import brief as jbrief
 from anyfeature_vslam_tpu.frontend import extractor as jext
 from anyfeature_vslam_tpu.frontend import fast as jfast
+from anyfeature_vslam_tpu.frontend import mldb as jmldb
+from anyfeature_vslam_tpu.frontend import msurf as jmsurf
+from anyfeature_vslam_tpu.frontend import nonlinear as jnl
 from anyfeature_vslam_tpu.frontend import orientation as jorient
 from anyfeature_vslam_tpu.frontend import pyramid as jpyr
 from anyfeature_vslam_tpu.frontend import select as jselect
@@ -25,6 +28,9 @@ from anyfeature_vslam_tpu.slam import frame_ops as jframe
 from anyfeature_vslam_tpu_torch.frontend import brief as tbrief
 from anyfeature_vslam_tpu_torch.frontend import extractor as text
 from anyfeature_vslam_tpu_torch.frontend import fast as tfast
+from anyfeature_vslam_tpu_torch.frontend import mldb as tmldb
+from anyfeature_vslam_tpu_torch.frontend import msurf as tmsurf
+from anyfeature_vslam_tpu_torch.frontend import nonlinear as tnl
 from anyfeature_vslam_tpu_torch.frontend import orientation as torient
 from anyfeature_vslam_tpu_torch.frontend import pyramid as tpyr
 from anyfeature_vslam_tpu_torch.frontend import select as tselect
@@ -103,11 +109,76 @@ def test_matching_and_pose_constants():
 
 
 def test_normalized_sizes():
-    for name in ("orb32", "brisk48"):
+    for name in ("orb32", "brisk48", "akaze61"):
         cfg = jext.ExtractorConfig.for_feature(name)
         octave = jnp.arange(cfg.n_levels, dtype=jnp.float32)
         want = np.asarray(jext._normalized_size(cfg, octave))
         np.testing.assert_allclose(text._normalized_size_np(cfg), want, rtol=2e-7, atol=0)
+
+
+# the level scales of akaze61 / kaze64 (1.6 * 2^(j/4), j = 0..3): every level's
+# sigma_rel, and kaze64's decimated spacing, is one of them
+NONLINEAR_SCALES = tuple(1.6 * 2.0 ** (j / 4) for j in range(4))
+
+
+def test_nonlinear_constants_and_fed_steps():
+    for name in ("TAU_MAX", "SIGMA0", "K_PERCENTILE", "K_NBINS", "_SCHARR_EDGE", "_SCHARR_MID"):
+        assert getattr(tnl, name) == getattr(jnl, name), name
+    # the FED steps between the levels of build_evolution, both schedules
+    for ds, counts in ((True, [0, 3, 3, 4, 2, 3, 3, 4]), (False, [0, 3, 3, 4, 4, 5, 6, 7])):
+        plans = tnl.plan_levels(480, 640, 8, ds)
+        assert [len(p.taus) for p in plans] == counts
+        t_prev = 0.5 * jnl.SIGMA0 ** 2
+        for p in plans:
+            t = 0.5 * p.sigma ** 2
+            div = 4.0 ** p.octave if ds else 1.0
+            if p.index:
+                assert list(p.taus) == jnl.fed_tau_steps((t - t_prev) / div)
+            assert p.sigma_rel == (p.sigma / 2 ** p.octave if ds else p.sigma)
+            t_prev = t
+    for total in (0.0, 0.3, 1.7, 5.12, 20.0):
+        assert tnl.fed_tau_steps(total) == jnl.fed_tau_steps(total)
+
+
+@pytest.mark.parametrize("scale", NONLINEAR_SCALES)
+def test_mldb_matrices(scale):
+    radius = tmldb.patch_radius(scale)
+    assert radius == jmldb.patch_radius(scale)
+    np.testing.assert_array_equal(tmldb._cell_matrix(scale, radius),
+                                  jmldb._cell_matrix(scale, radius))
+    np.testing.assert_array_equal(tmldb._orientation_matrix(scale, radius),
+                                  jmldb._orientation_matrix(scale, radius))
+
+
+def test_mldb_pairs_and_constants():
+    for name in ("GRIDS", "N_CELLS", "N_PAIRS", "N_BITS", "N_BITS_PADDED", "PATTERN_SIZE",
+                 "N_ROT", "N_ORI_BINS", "ORI_WINDOW"):
+        assert getattr(tmldb, name) == getattr(jmldb, name), name
+    np.testing.assert_array_equal(tmldb._ORI_IJ, jmldb._ORI_IJ)
+    for got, want in zip(tmldb._pair_matrices(), jmldb._pair_matrices()):
+        np.testing.assert_array_equal(got, want)
+    # the index form picks exactly the selectors' cells
+    a, b = jmldb._pair_matrices()
+    idx = tmldb.pair_indices().numpy()
+    np.testing.assert_array_equal(np.eye(a.shape[0], dtype=np.float32)[:, idx[0]], a)
+    np.testing.assert_array_equal(np.eye(b.shape[0], dtype=np.float32)[:, idx[1]], b)
+
+
+@pytest.mark.parametrize("scale", NONLINEAR_SCALES)
+def test_msurf_sample_matrix(scale):
+    radius = tmsurf.patch_radius(scale)
+    assert radius == jmsurf.patch_radius(scale)
+    np.testing.assert_array_equal(tmsurf._sample_matrix(scale, radius),
+                                  jmsurf._sample_matrix(scale, radius))
+
+
+def test_msurf_cell_weights_and_constants():
+    for name in ("CELLS", "HALF_CELLS", "CELL_SIZE", "LATTICE", "_N_SAMP", "N_ROT",
+                 "WEIGHT_SIGMA"):
+        assert getattr(tmsurf, name) == getattr(jmsurf, name), name
+    np.testing.assert_array_equal(tmsurf._LX, jmsurf._LX)
+    np.testing.assert_array_equal(tmsurf._LY, jmsurf._LY)
+    np.testing.assert_array_equal(tmsurf._cell_weights(), jmsurf._cell_weights())
 
 
 def test_port_imports_neither_jax_nor_pil():

@@ -1,6 +1,8 @@
-"""The FAST families of the PyTorch port (brisk48, anyfeat_bin,
-anyfeat_nonbin) against the JAX package, at 320x240 on the rendered
-benchmark scene (tests/torch_slice_scene.py).
+"""The feature families of the PyTorch port beyond orb32 (the FAST
+families brisk48, anyfeat_bin, anyfeat_nonbin; the nonlinear families
+akaze61, kaze64) against the JAX package, at 320x240 on the rendered
+benchmark scene (tests/torch_slice_scene.py). The nonlinear families'
+modules are held against JAX's in tests/test_torch_nonlinear.py.
 
 Tolerances and why:
 - copied constants (ring patterns and matrices, the learned48 sampling
@@ -21,7 +23,12 @@ Tolerances and why:
   fp32 pyramid differs from JAX's bf16x3 one by ~1e-4 gray levels, which
   moves a few near-threshold FAST decisions and, through the bf16
   rounding of the descriptor operands, a few rows of a level > 0; the
-  median angle error < 1e-4 rad;
+  median angle error < 1e-4 rad. The nonlinear families' extraction is
+  held so at JAX's contrast factor: the factor is a 300-bin histogram
+  percentile, and on this frame the two packages put it one bin apart
+  (tests/test_torch_nonlinear.py says why and holds it within one bin;
+  tests/contrast_factor_flips.py prints it per frame);
+  at one factor their keypoints and descriptors agree as well;
 - K2's float search on real anyfeat_nonbin descriptors: best and second
   within 1e-5 (squared L2 of unit vectors in another order), the index
   equal wherever best and second differ by more than 1e-5.
@@ -40,6 +47,7 @@ from anyfeature_vslam_tpu.frontend import pyramid as jpyr
 from anyfeature_vslam_tpu.frontend import ringdesc as jring
 from anyfeature_vslam_tpu.frontend import select as jselect
 from anyfeature_vslam_tpu.frontend import fast as jfast
+from anyfeature_vslam_tpu.frontend import nonlinear as jnl
 from anyfeature_vslam_tpu.ops import pallas_match as jpm
 from anyfeature_vslam_tpu.ops.camera import CameraParams as JaxCamera
 from anyfeature_vslam_tpu_torch import convert
@@ -47,6 +55,7 @@ from anyfeature_vslam_tpu_torch.frontend import cuda_fast
 from anyfeature_vslam_tpu_torch.frontend import extractor as text
 from anyfeature_vslam_tpu_torch.frontend import graddesc as tgrad
 from anyfeature_vslam_tpu_torch.frontend import learned48 as tl48
+from anyfeature_vslam_tpu_torch.frontend import nonlinear as tnl
 from anyfeature_vslam_tpu_torch.frontend import orientation as torient
 from anyfeature_vslam_tpu_torch.frontend import ringdesc as tring
 from anyfeature_vslam_tpu_torch.ops import cuda_match
@@ -55,6 +64,7 @@ from torch_slice_scene import SliceScene
 
 H, W, N_FEATURES = 240, 320, 600
 FAMILIES = ("brisk48", "anyfeat_bin", "anyfeat_nonbin")
+NONLINEAR = ("akaze61", "kaze64")
 
 
 @pytest.fixture(scope="module")
@@ -166,12 +176,18 @@ def test_ic_angle_and_describe_learned48_match_jax(frame):
     assert (got[~valid] == 0).all()
 
 
-@pytest.mark.parametrize("name", FAMILIES)
-def test_extract_features_matches_jax(frame, name):
+@pytest.mark.parametrize("name", FAMILIES + NONLINEAR)
+def test_extract_features_matches_jax(frame, name, monkeypatch):
     jcfg = jext.ExtractorConfig.for_feature(name, N_FEATURES)
     want = {k: np.asarray(v) for k, v in
             jext.extract_features(jnp.asarray(frame), jcfg, H, W).items()}
-    ext = text.FeatureExtractor(text.ExtractorConfig.for_feature(name, N_FEATURES), H, W)
+    ext = text.make_extractor(text.ExtractorConfig.for_feature(name, N_FEATURES), H, W)
+    if name in NONLINEAR:
+        # the port's scale space at JAX's contrast factor (module docstring)
+        k_jax = float(jnl.contrast_factor(jnp.asarray(frame) * jnp.float32(1.0 / 255.0)))
+        monkeypatch.setattr(tnl, "contrast_factor", lambda img01, taps: torch.tensor(k_jax))
+    assert isinstance(ext, text.NonlinearExtractor if name in NONLINEAR
+                      else text.FeatureExtractor)
     got = {k: v.numpy() for k, v in ext(torch.from_numpy(frame)).items()}
     assert set(got) == set(want)
     for k in want:
@@ -247,7 +263,28 @@ def test_system_builds_each_fast_family(name):
     assert system.vocabulary.centroids[-1].dtype == system.map.desc_dtype
 
 
-@pytest.mark.parametrize("name", ["akaze61", "kaze64", "sift128", "surf64", "r2d2_128"])
+@pytest.mark.parametrize("name", NONLINEAR)
+def test_system_builds_each_nonlinear_family(name):
+    """akaze61 (488 bits) and kaze64 (64-d floats): the nonlinear extractor
+    for both of the tracker's extractors, with their shared level scales."""
+    sc = SliceScene(160, 120, n_frames=2)
+    system = System(JaxCamera.create(**sc.camera), feature=name, device="cpu")
+    desc = jext.FEATURE_REGISTRY[name][1]
+    assert system.map.desc_dtype == text.descriptor_dtype(desc) == jext.descriptor_dtype(desc)
+    assert system.map.kf_desc_bits.dtype == system.map.pt_desc_bits.dtype == system.map.desc_dtype
+    assert system.map.desc_dim == jext.descriptor_dim(desc) == (488 if name == "akaze61" else 64)
+    for ext in (system.tracker.extractor, system.tracker.extractor_init):
+        assert isinstance(ext, text.NonlinearExtractor) and ext.cfg.descriptor == desc
+        assert len(set(ext.level_key)) == 4
+    assert system.tracker.extractor_init.cfg.n_features == 2 * system.tracker.extractor.cfg.n_features
+    assert system.vocabulary is not None and system.loop_closer is not None
+    assert system.vocabulary.centroids[-1].dtype == system.map.desc_dtype
+    feats = system.tracker.extractor(torch.from_numpy(sc.render(0)[0].astype(np.float32)))
+    assert feats["desc_bits"].shape == (system.tracker.extractor.cfg.capacity, system.map.desc_dim)
+    assert set(feats["octave"].tolist()) == {0, 1}
+
+
+@pytest.mark.parametrize("name", ["sift128", "surf64", "r2d2_128"])
 def test_other_families_still_raise(name):
     sc = SliceScene(160, 120, n_frames=2)
     with pytest.raises(NotImplementedError, match="queue item 9"):
@@ -276,4 +313,36 @@ def test_run_mono_takes_a_family(tmp_path, monkeypatch):
                           "device:cpu"]) == 0
     (system,) = built
     assert np.dtype(system.map.desc_dtype) == np.float32 and system.map.desc_dim == 48
+    assert system.tracker.stats["tracked_frames"] >= 6 and system.map.n_keyframes() >= 3
+
+
+def test_run_mono_takes_a_nonlinear_family(tmp_path, monkeypatch):
+    """``run_mono feature:akaze61 device:cpu`` reaches the System: the CLI
+    over 8 rendered frames builds a 488-bit map and tracks."""
+    from anyfeature_vslam_tpu_torch import run_mono
+    from anyfeature_vslam_tpu_torch import system as tsystem
+    from test_torch_system import _write_sequence
+
+    built = []
+
+    class Recording(tsystem.System):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(tsystem, "System", Recording)
+    seq, out = str(tmp_path / "seq"), str(tmp_path / "out")
+    _write_sequence(seq, SliceScene(W, H), 8)
+    # one intra-op thread: the suite's workers share the host's cores
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert run_mono.main([f"sequence_path:{seq}", f"exp_folder:{out}", "exp_id:t",
+                              "feature:akaze61", f"n_features:{N_FEATURES}", "verbose:0",
+                              "device:cpu"]) == 0
+    finally:
+        torch.set_num_threads(n_threads)
+    (system,) = built
+    assert np.dtype(system.map.desc_dtype) == np.uint8 and system.map.desc_dim == 488
+    assert isinstance(system.tracker.extractor, text.NonlinearExtractor)
     assert system.tracker.stats["tracked_frames"] >= 6 and system.map.n_keyframes() >= 3

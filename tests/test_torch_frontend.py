@@ -128,7 +128,7 @@ def test_extract_features_on_rendered_frame(frame, extractor):
     assert cuda_fast.fast_nms.launches == 0
 
 
-@pytest.mark.parametrize("name", ["kaze64", "surf64", "akaze61", "sift128"])
+@pytest.mark.parametrize("name", ["surf64", "sift128"])
 def test_other_families_raise_with_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OrbExtractor(ExtractorConfig.for_feature(name), H, W)
