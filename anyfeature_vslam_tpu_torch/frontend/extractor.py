@@ -1,26 +1,31 @@
 """Feature extraction (port of anyfeature_vslam_tpu/frontend/extractor.py).
 
-``FeatureExtractor`` is the ``detector == "fast"`` branch of the JAX
-``extract_features``: the pyramid, FAST + 3x3 NMS per level (kernel K1 on
-the card, one launch for all levels), grid-spread top-k, then per level
-one of four descriptors:
+``FeatureExtractor`` is the pyramid branch of the JAX ``extract_features``:
+the pyramid, per level a detector (FAST + 3x3 NMS, kernel K1 on the card,
+one launch for all levels; or a blob response, ``dog.dog_score_map``:
+dog, dog_norm, or SURF's det(Hessian) for surf64, which run no kernel),
+grid-spread top-k, then per level one of the descriptors:
 
-  bin256     orb32           IC angle + steered BRIEF-256, blurred level
+  bin256 (any binary width but 384 / 512)
+             orb32           IC angle + steered BRIEF, blurred level
   bin384     brisk48         BRISK rings (ringdesc.py), raw level
   bin512     anyfeat_bin     FREAK retina (ringdesc.py), raw level
   learned48  anyfeat_nonbin  IC angle + learned MLP (learned48.py), raw level
+  grad48/64/128  surf64 (64)  IC angle + gradient histograms (graddesc.py)
 
 then per-level budgets and ORB size normalisation. ``NonlinearExtractor``
 is its ``_extract_nonlinear`` branch (akaze61, kaze64): the FED nonlinear
 scale space and det(H) detection (nonlinear.py), then M-LDB 488 bits
-(mldb.py) or M-SURF 64-d floats (msurf.py) per evolution level; it runs
-no CUDA kernel. ``make_extractor`` builds the one a family needs. The
+(mldb.py) or M-SURF 64-d floats (msurf.py) per evolution level.
+``SiftExtractor`` is its ``_extract_sift`` branch (sift128): Gaussian
+octaves, 3D DoG extrema with a subpixel fit (scalespace.py), SIFT's
+dominant orientation and 4x4x8 histograms (graddesc.py). Neither runs a
+CUDA kernel. ``make_extractor`` builds the one a family needs; r2d2_128
+loads precomputed features (io/precomputed.py) and has no extractor. The
 constants (resize matrices, Gaussian taps, the descriptors' sampling
 tables and matrices, moment matrix, MLP) are module state, so
-``.to(device)`` moves them with the module. The other detectors (sift128,
-surf64) raise ``NotImplementedError`` naming ROADMAP.md queue item 9. The
-registry and config are copied from the JAX package and held equal to it
-by a CPU test.
+``.to(device)`` moves them with the module. The registry and config are
+copied from the JAX package and held equal to it by a CPU test.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ import torch
 from torch import nn
 
 from ..convert import learned48_from_numpy
-from . import (brief, cuda_fast, learned48, mldb, msurf, nonlinear, orientation, pyramid,
-               ringdesc, select)
+from . import (brief, cuda_fast, dog, graddesc, learned48, mldb, msurf, nonlinear,
+               orientation, pyramid, ringdesc, scalespace, select)
 
 ORB_MAX_SIZE = 1.2 ** 7
 
@@ -127,25 +132,24 @@ def _normalized_size_np(cfg: ExtractorConfig):
 
 
 _RINGS = {"bin384": "brisk", "bin512": "freak"}
-_DESCRIPTORS = ("bin256", "bin384", "bin512", "learned48")
+_PYRAMID_DETECTORS = ("fast",) + dog.MODES
 
 
 class FeatureExtractor(nn.Module):
-    """FAST-family extraction for images of one size. ``forward(image)``
+    """Pyramid-branch extraction for images of one size. ``forward(image)``
     takes an (H, W) float32 image in 0..255 on the module's device and
     returns the JAX package's feature dict: xy (N, 2), resp, octave
     (int32), angle, size, sigma2, inv_sigma2 (N,) float32, desc_bits
-    (N, D) uint8 {0,1} (binary) or float32 (learned48), valid (N,) bool,
-    with N = cfg.capacity."""
+    (N, D) uint8 {0,1} (binary) or float32 (learned48, grad*), valid (N,)
+    bool, with N = cfg.capacity."""
 
     def __init__(self, cfg: ExtractorConfig, height: int, width: int):
         super().__init__()
-        if cfg.detector != "fast" or cfg.descriptor not in _DESCRIPTORS:
-            raise NotImplementedError(
-                f"FeatureExtractor extracts the FAST families (orb32, brisk48, anyfeat_bin, "
-                f"anyfeat_nonbin) only; {cfg.detector} + {cfg.descriptor} is ROADMAP.md "
-                "queue item 9, 'The other feature families'"
-            )
+        if cfg.detector not in _PYRAMID_DETECTORS:
+            raise ValueError(f"FeatureExtractor takes the detectors {_PYRAMID_DETECTORS}, not "
+                             f"{cfg.detector} (make_extractor builds that family's)")
+        if not cfg.descriptor.startswith(("bin", "learned48", "grad")):
+            raise ValueError(f"no pyramid descriptor {cfg.descriptor}")
         self.cfg = cfg
         self.height, self.width = height, width
         self.shapes = pyramid.level_shapes(height, width, cfg.n_levels, cfg.scale_factor)
@@ -153,20 +157,27 @@ class FeatureExtractor(nn.Module):
             (h1, w1), (h2, w2) = self.shapes[lvl - 1], self.shapes[lvl]
             self.register_buffer(f"wr{lvl}", torch.from_numpy(pyramid.resize_weights_np(h1, h2)))
             self.register_buffer(f"wc{lvl}", torch.from_numpy(pyramid.resize_weights_np(w1, w2)))
+        blob_taps = () if cfg.detector == "fast" else dog.tensors(cfg.detector)
+        self.n_blob_taps = len(blob_taps)
+        for k, t in enumerate(blob_taps):
+            self.register_buffer(f"blob_taps{k}", t)
         self.register_buffer("moment_mat", torch.from_numpy(orientation.moment_matrix_np()))
-        if cfg.descriptor == "bin256":
+        if cfg.descriptor in _RINGS:
+            desc_m, ori_m = ringdesc.ring_tensors(_RINGS[cfg.descriptor])
+            self.register_buffer("ring_desc", desc_m)
+            self.register_buffer("ring_ori", ori_m)
+        elif cfg.descriptor.startswith("bin"):
             self.register_buffer("gauss", torch.from_numpy(
                 pyramid.gaussian_kernel1d(cfg.blur_sigma, 3)))
             p1, p2 = brief.sample_index_tables_np(cfg.desc_dim)
             self.register_buffer("brief_p1", torch.from_numpy(p1))
             self.register_buffer("brief_p2", torch.from_numpy(p2))
-        elif cfg.descriptor in _RINGS:
-            desc_m, ori_m = ringdesc.ring_tensors(_RINGS[cfg.descriptor])
-            self.register_buffer("ring_desc", desc_m)
-            self.register_buffer("ring_ori", ori_m)
-        else:
-            self.register_buffer("sample_mat", learned48.sample_tensor())
+        elif cfg.descriptor == "learned48":
+            self.register_buffer("sample_mat", graddesc.sample_tensor())
             self.mlp = learned48_from_numpy(learned48.load_weights(), "cpu")
+        else:
+            for name, t in zip(("sample_mat", "cell_mat", "rot_cs"), graddesc.tensors()):
+                self.register_buffer(name, t)
         size = _normalized_size_np(cfg)
         octave = np.concatenate([np.full(b, l, np.int32) for l, b in enumerate(cfg.level_budgets)])
         self.register_buffer("octave", torch.from_numpy(octave))
@@ -182,7 +193,10 @@ class FeatureExtractor(nn.Module):
     def describe(self, img_l, xy, valid):
         """(angle (n,), descriptors (n, D)) of one level's keypoints."""
         d = self.cfg.descriptor
-        if d == "bin256":
+        if d in _RINGS:
+            return ringdesc.describe_ring(img_l, xy, valid, _RINGS[d], self.ring_desc,
+                                          self.ring_ori)
+        if d.startswith("bin"):
             # one patch gather from the blurred level serves the IC angle
             # and the BRIEF sampling, as in the JAX package
             img_blur = pyramid.gaussian_blur(img_l, self.gauss)
@@ -190,12 +204,12 @@ class FeatureExtractor(nn.Module):
                 img_blur, xy, orientation.PATCH_RADIUS).reshape(xy.shape[0], -1)
             ang = orientation.ic_angle_from_patches(flat, self.moment_mat)
             return ang, brief.describe_from_flat(flat, ang, valid, self.brief_p1, self.brief_p2)
-        if d in _RINGS:
-            return ringdesc.describe_ring(img_l, xy, valid, _RINGS[d], self.ring_desc,
-                                          self.ring_ori)
         ang = orientation.ic_angle(img_l, xy, self.moment_mat)
-        return ang, learned48.describe_learned48(img_l, xy, ang, valid, self.sample_mat,
-                                                 self.mlp)
+        if d == "learned48":
+            return ang, learned48.describe_learned48(img_l, xy, ang, valid, self.sample_mat,
+                                                     self.mlp)
+        return ang, graddesc.describe_grad(img_l, xy, ang, valid, self.cfg.desc_dim,
+                                           self.sample_mat, self.cell_mat, self.rot_cs)
 
     def forward(self, image):
         return self.from_levels(self.levels(image))
@@ -208,8 +222,12 @@ class FeatureExtractor(nn.Module):
     def from_levels(self, levels):
         """The feature dict of ``forward`` from the pyramid's levels."""
         cfg = self.cfg
-        # K1 on every level: one launch on the card
-        scores = cuda_fast.fast_nms_levels(levels, cfg.detect_th)
+        if cfg.detector == "fast":
+            # K1 on every level: one launch on the card
+            scores = cuda_fast.fast_nms_levels(levels, cfg.detect_th)
+        else:
+            taps = [getattr(self, f"blob_taps{k}") for k in range(self.n_blob_taps)]
+            scores = [dog.dog_score_map(l, cfg.detect_th, cfg.detector, taps) for l in levels]
         outs = {k: [] for k in ("xy", "resp", "angle", "desc_bits", "valid")}
         for lvl, budget in enumerate(cfg.level_budgets):
             xy, resp, valid = select.select_spread_topk(scores[lvl], budget, cfg.border)
@@ -358,11 +376,146 @@ class NonlinearExtractor(nn.Module):
 _NONLINEAR = ("akaze", "kaze")
 
 
+def _sift_unit_budgets(total: int, n_units: int, nspo: int):
+    """Geometric per-(octave, slice) budgets summing EXACTLY to `total`
+    (the frame SoA capacity), finer scales first — same shape as the
+    reference per-level split (src/FeatureExtractor.cpp:97-108) over the
+    continuous-scale units."""
+    factor = 0.5 ** (1.0 / nspo)
+    desired = total * (1 - factor) / (1 - factor ** n_units)
+    budgets = []
+    acc = 0
+    for u in range(n_units - 1):
+        b = max(min(int(round(desired)), total - acc - (n_units - 1 - u)), 1)
+        budgets.append(b)
+        acc += b
+        desired *= factor
+    budgets.append(total - acc)
+    return budgets
+
+
+class SiftExtractor(nn.Module):
+    """sift128 extraction for images of one size (the JAX
+    ``_extract_sift``; reference src/Feature_sift128.cpp:9-92): nspo =
+    n_levels / 4 slices per octave and as many octaves as the image
+    allows (at most n_levels / nspo; 4 at 640x480, 3 at 320x240), one
+    unit per (octave, inner DoG slice) with a static slice of the
+    capacity as its budget. Per unit the 3D DoG extrema
+    (``scalespace.dog_extrema_maps``), spread top-k, the keypoints moved
+    by the subpixel offsets read at their integer maxima, then SIFT's
+    dominant orientation and 4x4x8 histograms on the unit's Gaussian
+    slice (``graddesc.describe_grad_auto``). The stored octave is the
+    unit's octave; the size is the refined continuous scale mapped onto
+    ORB's band. ``forward`` returns ``FeatureExtractor``'s dict."""
+
+    def __init__(self, cfg: ExtractorConfig, height: int, width: int):
+        super().__init__()
+        if cfg.detector != "sift":
+            raise ValueError(f"SiftExtractor takes the sift detector, not {cfg.detector}")
+        self.cfg = cfg
+        self.height, self.width = height, width
+        self.nspo = nspo = max(cfg.n_levels // 4, 1)
+        self.n_oct = n_oct = scalespace.n_octaves(height, width,
+                                                  max_octaves=max(cfg.n_levels // nspo, 1))
+        self.budgets = _sift_unit_budgets(cfg.capacity, n_oct * nspo, nspo)
+        self.sig = scalespace.slice_sigmas(nspo)
+        self.register_buffer("base_taps", scalespace.taps(scalespace.base_sigma()))
+        self.n_inc = nspo + 2
+        for k, s in enumerate(scalespace.increment_sigmas(nspo)):
+            self.register_buffer(f"inc_taps{k}", scalespace.taps(s))
+        self.shapes = [(height, width)]
+        for o in range(1, n_oct):
+            (h1, w1), (h2, w2) = self.shapes[-1], scalespace.octave_shape(*self.shapes[-1])
+            self.register_buffer(f"wr{o}", torch.from_numpy(pyramid.resize_weights_np(h1, h2)))
+            self.register_buffer(f"wc{o}", torch.from_numpy(pyramid.resize_weights_np(w1, w2)))
+            self.shapes.append((h2, w2))
+        for name, t in zip(("sample_mat", "cell_mat", "rot_cs", "ori_w"), graddesc.tensors()):
+            self.register_buffer(name, t)
+        units = [o for o in range(n_oct) for _ in range(nspo)]
+        self.register_buffer("octave", torch.from_numpy(np.concatenate(
+            [np.full(b, o, np.int32) for o, b in zip(units, self.budgets)])))
+        self.register_buffer("up", torch.from_numpy(np.concatenate(
+            [np.full(b, 2.0 ** o, np.float32) for o, b in zip(units, self.budgets)])))
+        # the continuous size's band: sizes up to 0.6 slices past the last unit
+        self.max_raw = (self.sig[nspo] / scalespace.SIGMA0) * (2.0 ** (n_oct - 1)) * 2.0 ** 0.6
+        # a divisor on the device: CUDA multiplies by the reciprocal of a host scalar
+        self.register_buffer("size_div", torch.tensor(self.max_raw - 1.0, dtype=torch.float32))
+
+    def forward(self, image):
+        return self.from_levels(self.levels(image))
+
+    def levels(self, image):
+        """The Gaussian scale space of an (H, W) float32 image in 0..255:
+        per octave its nspo + 3 slices."""
+        image = image.reshape(self.height, self.width)
+        inc = [getattr(self, f"inc_taps{k}") for k in range(self.n_inc)]
+        base = pyramid.gaussian_blur(image, self.base_taps)
+        octaves = []
+        for o in range(self.n_oct):
+            if o > 0:
+                base = scalespace.downsample2(octaves[-1][self.nspo], getattr(self, f"wr{o}"),
+                                              getattr(self, f"wc{o}"))
+            octaves.append(scalespace.build_octave(base, inc))
+        return octaves
+
+    def from_levels(self, octaves):
+        """The feature dict of ``forward`` from the scale space's octaves."""
+        cfg, nspo = self.cfg, self.nspo
+        outs = {k: [] for k in ("xy", "resp", "angle", "desc_bits", "valid", "raw")}
+        unit = 0
+        for o, slices in enumerate(octaves):
+            dogs = [slices[i + 1] - slices[i] for i in range(nspo + 2)]
+            lh, lw = slices[0].shape
+            border = max(min(cfg.border, min(lh, lw) // 4), 4)
+            for i in range(1, nspo + 1):
+                score, ox, oy, osc = scalespace.dog_extrema_maps(
+                    dogs[i - 1], dogs[i], dogs[i + 1], cfg.detect_th)
+                xy, resp, valid = select.select_spread_topk(score, self.budgets[unit], border)
+                xi = torch.clamp(xy[:, 0].to(torch.int64), 0, lw - 1)
+                yi = torch.clamp(xy[:, 1].to(torch.int64), 0, lh - 1)
+                xy_ref = xy + torch.stack([ox[yi, xi], oy[yi, xi]], -1)
+                ang, desc = graddesc.describe_grad_auto(
+                    slices[i], xy_ref, valid, cfg.desc_dim, self.sample_mat, self.cell_mat,
+                    self.rot_cs, self.ori_w)
+                outs["xy"].append(xy_ref)
+                outs["resp"].append(resp)
+                outs["angle"].append(ang)
+                outs["desc_bits"].append(desc)
+                outs["valid"].append(valid)
+                # the refined continuous scale sigma0 * 2^(o + (i + ds) / nspo),
+                # relative to sigma0
+                outs["raw"].append((self.sig[i] / scalespace.SIGMA0)
+                                   * (2.0 ** (o + osc[yi, xi] / nspo)))
+                unit += 1
+        valid = torch.cat(outs["valid"])
+        # the continuous size onto ORB's [1, 1.2^7] band (computeSize,
+        # src/FeatureExtractor.cpp:132-142)
+        raw = torch.clamp(torch.cat(outs["raw"]), 1.0, self.max_raw)
+        size = 1.0 + (raw - 1.0) * (ORB_MAX_SIZE - 1.0) / self.size_div
+        sigma2 = size * size
+        return dict(
+            xy=torch.cat(outs["xy"]) * self.up[:, None],
+            resp=torch.cat(outs["resp"]),
+            octave=self.octave,
+            angle=torch.cat(outs["angle"]),
+            size=size,
+            sigma2=sigma2,
+            inv_sigma2=torch.where(valid, 1.0 / sigma2, torch.zeros_like(sigma2)),
+            desc_bits=torch.cat(outs["desc_bits"]),
+            valid=valid,
+        )
+
+
 def make_extractor(cfg: ExtractorConfig, height: int, width: int):
     """The extractor of cfg's family: ``NonlinearExtractor`` for the akaze /
-    kaze detectors, else ``FeatureExtractor`` (which raises for families
-    not yet ported)."""
+    kaze detectors, ``SiftExtractor`` for sift, else ``FeatureExtractor``
+    (the pyramid branch). The precomputed detector (r2d2_128) has none:
+    the tracker loads its features (io/precomputed.py)."""
+    if cfg.detector == "precomputed":
+        raise ValueError("precomputed features are loaded, not extracted "
+                         "(io/precomputed.load_precomputed_features)")
     if cfg.detector in _NONLINEAR:
         return NonlinearExtractor(cfg, height, width)
+    if cfg.detector == "sift":
+        return SiftExtractor(cfg, height, width)
     return FeatureExtractor(cfg, height, width)
-

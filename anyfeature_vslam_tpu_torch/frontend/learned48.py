@@ -41,12 +41,6 @@ def load_weights(path: str = WEIGHTS_PATH) -> dict:
         return {k: np.asarray(z[k]) for k in z.files}
 
 
-def sample_tensor():
-    """graddesc's sampling matrix rounded to bf16, as an fp32 CPU tensor
-    (``FeatureExtractor`` keeps it as a buffer)."""
-    return bf16_round(torch.from_numpy(graddesc._sample_matrix().copy()))
-
-
 def sample_canonical_patches(img, xy, angle, sample_mat):
     """(N, 400) rotation-canonicalised 20x20 patches, mean/std normalised
     (population std, as jnp.std), from the raw level image."""
@@ -78,7 +72,7 @@ class Learned48(nn.Module):
 
 def describe_learned48(img, xy, angle, valid, sample_mat, mlp):
     """(N, 48) float32 descriptors from the raw level image, zero on
-    invalid rows. sample_mat: ``sample_tensor()`` on the image's device;
+    invalid rows. sample_mat: ``graddesc.sample_tensor()`` on the image's device;
     mlp: a ``Learned48`` on the same device."""
     d = mlp(sample_canonical_patches(img, xy, angle, sample_mat))
     return torch.where(valid[:, None], d, torch.zeros_like(d))

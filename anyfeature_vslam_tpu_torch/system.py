@@ -456,8 +456,10 @@ class System:
                     self.database.add(int(kf), self.map.kf_desc_bits[kf],
                                       self.map.kf_feat_valid[kf])
 
-    def track_monocular(self, img, ts: float) -> TrackState:
-        """Track one (H, W) uint8 or float image (numpy, or a tensor)."""
+    def track_monocular(self, img, ts: float, image_path: str | None = None) -> TrackState:
+        """Track one (H, W) uint8 or float image (numpy, or a tensor).
+        image_path: the image's file, where precomputed features (r2d2_128)
+        are found (io/precomputed.feature_paths); other families ignore it."""
         if self._reset_requested:
             self.reset()
             self._reset_requested = False
@@ -468,7 +470,7 @@ class System:
             self._worker.flush()
         t0 = time.perf_counter()
         with self._turns, streams.use(self._track_stream):
-            state = self.tracker.process_frame(img, ts)
+            state = self.tracker.process_frame(img, ts, image_path=image_path)
         self.frame_times.append(time.perf_counter() - t0)
         return state
 
@@ -543,7 +545,8 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
     src/vslamlab_anyfeature_mono.cpp:161-169). threaded_mapping: the
     System's worker-thread schedule. On the card the next frame's image is
     read and its upload started (pinned, non_blocking, on the tracker's
-    stream) before the current frame is tracked."""
+    stream) before the current frame is tracked (not for precomputed
+    features, which the tracker reads from the files beside each image)."""
     seq = dataset.load_sequence(sequence_path, calibration_yaml=calibration_yaml,
                                 rgb_csv=rgb_csv)
     feature_settings = dataset.load_feature_settings(feature_yaml) if feature_yaml else None
@@ -553,7 +556,8 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
                     vocabulary_path=vocabulary_path, n_features=n_features,
                     threaded_mapping=threaded_mapping, device=device)
     n = len(seq.image_paths) if max_frames is None else min(max_frames, len(seq.image_paths))
-    prefetch = system.device.type == "cuda"
+    # precomputed features are read from files: no image upload to overlap
+    prefetch = system.device.type == "cuda" and not system.tracker.precomputed
 
     def load(i):
         img = dataset.load_gray(seq.image_paths[i])
@@ -573,7 +577,7 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
         img = nxt
         if i + 1 < n:
             nxt = load(i + 1)
-        state = system.track_monocular(img, seq.timestamps[i])
+        state = system.track_monocular(img, seq.timestamps[i], image_path=seq.image_paths[i])
         if verbose:
             print(f"frame {i}/{n} state={state.name} kfs={system.map.n_keyframes()} "
                   f"pts={system.map.n_points()} inliers={system.tracker.n_inliers}", flush=True)

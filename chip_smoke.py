@@ -80,23 +80,26 @@ K2 is then held exact against its twin at the recorded inputs of the
 relocalization and loop searches.
  13. the other families, each at 640x480 with 1000 features: the FAST
      families brisk48 (BRISK, 384 bits, scale 1.5), anyfeat_bin (FREAK,
-     512 bits) and anyfeat_nonbin (learned 48-d float), and the
-     nonlinear families akaze61 (M-LDB, 488 bits) and kaze64 (M-SURF,
-     64-d float), which detect on the FED scale space and launch no K1:
+     512 bits) and anyfeat_nonbin (learned 48-d float), the nonlinear
+     families akaze61 (M-LDB, 488 bits) and kaze64 (M-SURF, 64-d float),
+     which detect on the FED scale space, surf64 (det(H) per pyramid
+     level, 64-d SURF sums) and sift128 (3D DoG extrema over Gaussian
+     octaves, 128-d SIFT histograms); only the FAST families launch K1:
      K1 bit-exact on a FAST family's 8 levels of one frame; one
-     extraction on the card against the CPU (>= 99% of keypoints equal;
-     binary rows >= 99% equal, float rows >= 99% within 1e-4; median
-     angle error < 1e-4 rad) and, to hold detection and description
-     alone, against the CPU at the card's pyramid or scale space (the
-     same; anyfeat_nonbin's float rows all within 1e-4), and its time
-     (for akaze61 / kaze64 also the scale space's difference, the
-     contrast factor on both devices and a profile of its device
-     events); every family runs, and a failure of any fails the phase;
+     extraction on the card against the CPU (>= 99% of keypoints equal,
+     sift128's within 0.01 px; binary rows >= 99% equal, float rows
+     >= 99% within 1e-4; median angle error < 1e-4 rad) and, to hold
+     detection and description alone, against the CPU at the card's
+     pyramid or scale space (the same; anyfeat_nonbin's and surf64's
+     float rows all within 1e-4), and its time (for the families without
+     K1 also the scale space's or pyramid's difference and a profile of
+     its device events; for akaze61 / kaze64 the contrast factor on both
+     devices); every family runs, and a failure of any fails the phase;
      the System with the JAX defaults (asynchronous mapping, the
      family's shipped vocabulary, loop detection at every event) over
      phase 8's 48 frames: 0 resets, >= 45 tracked, keyframe ATE < 2 cm,
      K1 once per frame (once more for a rebuilt initialization) for a
-     FAST family and never for akaze61 / kaze64, K2 from the init,
+     FAST family and never for the others, K2 from the init,
      tracking and fusion searches (pack_bits for the binary families
      only), ms per frame with and without an event; K2 against
      its twin at the recorded init search, the tracked frame's
@@ -104,16 +107,23 @@ relocalization and loop searches.
      (motion-model or local-map) searches, and a fusion search, each
      with its launches (binary: exact; float: within 1e-5, equal indices
      where best and second lie further apart).
+ 14. r2d2_128 (precomputed 128-d float features) at 640x480 with 1000
+     features: tests/r2d2_scene.py's landmark scene, its r2d2 .bin files
+     written to a temporary folder and a flat gray uint8 array passed
+     with each image path; phase 13's System run, gates and K2 rows at
+     D = 128 (0 K1 and 0 pack_bits launches; the vocabulary is trained
+     online, so only the events after it run the loop stage).
 
-The launch counters are set to 0 before phases 5, 8, 9, 10, 11, 12 and
-each family's System run in 13, and read after each. Every phase logs
+The launch counters are set to 0 before phases 5, 8, 9, 10, 11, 12,
+each family's System run in 13 and phase 14's, and read after each. Every phase logs
 its wall time. Prints the card (nvidia-smi
 name, power limit) first, then per-phase lines, one JSON line of kernel
 results (K1 and pack_bits: launches in phase 8, by phase and by family,
 per tracked frame of phase 5: device time, eager and graph times, plain
 twin, bound; K2 once per search, by the search's label: launches over
 phases 8-12 and its times at one recorded input, and once per family's
-init, tracking and fusion search), and as the last line
+init, tracking (reference-keyframe and windowed) and fusion search,
+phases 13 and 14), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is present.
@@ -482,6 +492,8 @@ def track_frames(torch, sc, cam, ext, state, frames, device):
 N_SYSTEM_FRAMES = 48
 N_SYNC_FRAMES = 16
 RECORDED_EVENT = 10  # the keyframe event whose fusion searches are recorded
+# phase 14's scene mints a keyframe every ~10 frames (5 events in 48 frames)
+RECORDED_EVENT_R2D2 = 2
 MIN_SYSTEM_TRACKED = 45
 MAX_ATE_M = 0.05
 # K2's searches in the System, by the innermost labelled caller: the init
@@ -498,7 +510,8 @@ class SystemProbe:
     label of the innermost labelled caller on the launching thread,
     SEARCHES; the kernel's launches on that thread, one per guided search
     that has queries and candidates), the inputs of the init
-    searches, of the fusion searches of keyframe event RECORDED_EVENT and
+    searches, of the fusion searches of keyframe event `record_event`
+    (RECORDED_EVENT unless given) and
     of the first RECORD_FIRST tracking, relocalization and loop searches kept in
     `record` by label, the tracked frame's reference-keyframe searches (no
     window) counted apart in `k2_reference` (they are also "tracking"
@@ -509,12 +522,14 @@ class SystemProbe:
     sync=False neither frames nor events wait for the device, so the
     deferred solves overlap what follows them."""
 
-    def __init__(self, torch, system, device, record=None, sync_sites=None, sync=True):
+    def __init__(self, torch, system, device, record=None, sync_sites=None, sync=True,
+                 record_event=RECORDED_EVENT):
         from anyfeature_vslam_tpu_torch.frontend import cuda_fast
         from anyfeature_vslam_tpu_torch.ops import cuda_match
 
         self.torch, self.system, self.device = torch, system, torch.device(device)
         self.record, self.sync_sites, self.sync = record, sync_sites, sync
+        self.record_event = record_event
         self.counters = (cuda_fast.fast_nms, cuda_match.best_two, cuda_match.pack_bits)
         self._tls = threading.local()
         self._lock = threading.Lock()
@@ -590,7 +605,7 @@ class SystemProbe:
         def inner(*a, **kw):
             rec, lab = self.record, self.label
             if rec is not None and (
-                    lab == "init" or (lab == "fusion" and len(self.events) == RECORDED_EVENT)
+                    lab == "init" or (lab == "fusion" and len(self.events) == self.record_event)
                     or (lab != "init" and lab != "fusion"
                         and len(rec.get(lab, ())) < RECORD_FIRST)):
                 rec.setdefault(lab, []).append((a, kw))
@@ -675,14 +690,15 @@ class SystemProbe:
         self._patched = []
         return False
 
-    def frame(self, img8, ts):
-        """Track one frame; its row: ms, state, launches, events, map size."""
+    def frame(self, img8, ts, image_path=None):
+        """Track one frame; its row: ms, state, launches, events, map size.
+        image_path: where a precomputed family's features are found."""
         c = self.counters
         n0 = [x.launches for x in c]
         ev0 = len(self.events)
         s0 = self._syncs()
         t0 = time.perf_counter()
-        state = self.system.track_monocular(img8, ts)
+        state = self.system.track_monocular(img8, ts, image_path=image_path)
         self._sync()
         m = self.system.map
         return dict(ms=(time.perf_counter() - t0) * 1e3, state=state.name,
@@ -693,10 +709,12 @@ class SystemProbe:
 
 
 def system_run(torch, width, height, n_frames, device, record=None, sync_sites=None,
-               frames=None, sync=True, sync_frames=None, feature="orb32", **system_kw):
+               frames=None, sync=True, sync_frames=None, feature="orb32", sc=None,
+               image_paths=None, record_event=RECORDED_EVENT, **system_kw):
     """The port's System (shipped vocabulary, loop closing on, `system_kw`
     for the schedule) over the first n_frames of the bench sequence
-    (rendered in memory unless `frames` are given), `feature`, 1000
+    (rendered in memory unless `frames` are given; or of the scene `sc`,
+    whose frame i is read from image_paths[i]), `feature`, 1000
     features.
     With `sync_frames`, host syncs are counted into `sync_sites` over that
     many first frames only (those rows have "sync_counted"). Returns
@@ -707,17 +725,19 @@ def system_run(torch, width, height, n_frames, device, record=None, sync_sites=N
     from anyfeature_vslam_tpu_torch.system import System
     from torch_slice_scene import SliceScene
 
-    sc = SliceScene(width, height)
+    sc = sc or SliceScene(width, height)
     if frames is None:
         frames = [sc.render(i)[0] for i in range(n_frames)]
     system = System(SimpleNamespace(**sc.camera), feature=feature, n_features=N_FEATURES,
                     device=device, **system_kw)
     rows = []
-    with SystemProbe(torch, system, device, record, sync_sites, sync=sync) as probe:
+    with SystemProbe(torch, system, device, record, sync_sites, sync=sync,
+                     record_event=record_event) as probe:
         for i, img8 in enumerate(frames[:n_frames]):
             counted = sync_frames is not None and i < sync_frames
+            path = image_paths[i] if image_paths is not None else None
             with sync_counter(torch, sync_sites) if counted else contextlib.nullcontext():
-                rows.append(dict(probe.frame(img8, i / 30.0), sync_counted=counted))
+                rows.append(dict(probe.frame(img8, i / 30.0, path), sync_counted=counted))
     return system, rows, probe.events, sc, probe.k2_by_label, probe
 
 
@@ -1438,7 +1458,8 @@ def threaded_phase(torch, device, frames):
     return (k1, k2, pack), dict(probe.k2_by_label)
 
 
-FAMILIES = ("brisk48", "anyfeat_bin", "anyfeat_nonbin", "akaze61", "kaze64")
+FAMILIES = ("brisk48", "anyfeat_bin", "anyfeat_nonbin", "akaze61", "kaze64", "surf64",
+            "sift128")
 N_FAMILY_FRAMES = 48
 # JAX's own per-family bound (tests/test_synth_sequence_e2e.py:75-93); the
 # JAX package's keyframe ATE on the CPU over these 48 frames: PERF.md
@@ -1450,26 +1471,36 @@ MAX_MEDIAN_ANGLE_ERR = 1e-4
 FAMILY_SEARCHES = ("init", "tracking", "fusion")
 
 
+# sift128's keypoints are integer maxima moved by subpixel offsets, which
+# magnify a last-bit difference in the scale space: equal when their
+# octaves are and they lie this close (tests/test_torch_families.py)
+SIFT_KP_TOL_PX = 0.01
+
+
 def family_extraction(torch, device, feature, img8):
     """Phase 13, the extractor of one family on one rendered frame: for a
     FAST family K1 bit-exact on its 8 levels (one launch); for akaze61 /
-    kaze64 the nonlinear scale space, with no K1 launch; then the
-    extraction on the card against the same extractor on the CPU, and its
-    time on the card. Returns K1's max abs err against its twin (None
-    where the family does not run K1)."""
+    kaze64 the nonlinear scale space, for surf64 the det(H) pyramid, for
+    sift128 the Gaussian octaves, with no K1 launch; then the extraction
+    on the card against the same extractor on the CPU, and its time on
+    the card (and for the families without K1 a profile of its device
+    events). Returns K1's max abs err against its twin (None where the
+    family does not run K1)."""
     import numpy as np
 
     from anyfeature_vslam_tpu_torch.frontend import cuda_fast, pyramid
     from anyfeature_vslam_tpu_torch.frontend.extractor import (ExtractorConfig,
-                                                               NonlinearExtractor, make_extractor)
+                                                               NonlinearExtractor,
+                                                               SiftExtractor, make_extractor)
 
     cfg = ExtractorConfig.for_feature(feature, N_FEATURES)
     ext = make_extractor(cfg, H, W).to(device)
     nonlinear = isinstance(ext, NonlinearExtractor)
+    sift = isinstance(ext, SiftExtractor)
     img = torch.from_numpy(img8).to(device).float()
     n_k1 = cuda_fast.fast_nms.launches
     k1_err = None
-    if nonlinear:
+    if cfg.detector != "fast":
         levels = ext.levels(img)
     else:
         levels = [l.contiguous() for l in pyramid.build_pyramid(img, ext.resize_mats())]
@@ -1509,6 +1540,12 @@ def family_extraction(torch, device, feature, img8):
                       f"{resp_err:.3g} of its level's largest; contrast factor card "
                       f"{k_card!r}, CPU {k_cpu!r}")
         card_levels = [ev.to("cpu") for ev in levels]
+    elif sift:
+        # the Gaussian slices of every octave
+        level_err = max(float((a.cpu() - b).abs().max())
+                        for oa, ob in zip(levels, cpu_levels) for a, b in zip(oa, ob))
+        level_line = f"scale space max abs diff {level_err:.3g} gray levels"
+        card_levels = [[a.cpu() for a in oa] for oa in levels]
     else:
         level_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(levels, cpu_levels))
         level_line = f"levels max abs diff {level_err:.3g} gray levels"
@@ -1516,17 +1553,37 @@ def family_extraction(torch, device, feature, img8):
     fc = {k: v.numpy() for k, v in ext_cpu.from_levels(cpu_levels).items()}
     fs = {k: v.numpy() for k, v in ext_cpu.from_levels(card_levels).items()}
 
-    def keyed(f):
-        keys = zip(f["octave"], f["xy"][:, 0], f["xy"][:, 1])
-        return {k: i for i, k in enumerate(keys) if f["valid"][i]}
+    def pairs(fa, fb):
+        """(slot in fa, slot in fb) of the valid keypoints of both: equal
+        (octave, x, y), or for sift128 equal octaves within
+        SIFT_KP_TOL_PX (the nearest, each used once)."""
+        if not sift:
+            def keyed(f):
+                keys = zip(f["octave"], f["xy"][:, 0], f["xy"][:, 1])
+                return {k: i for i, k in enumerate(keys) if f["valid"][i]}
+
+            ka, kb = keyed(fa), keyed(fb)
+            return [(ka[k], kb[k]) for k in sorted(set(ka) & set(kb))]
+        out, used = [], set()
+        va = np.nonzero(fa["valid"])[0]
+        for j in np.nonzero(fb["valid"])[0]:
+            cand = va[fa["octave"][va] == fb["octave"][j]]
+            if len(cand):
+                d = np.abs(fa["xy"][cand] - fb["xy"][j]).max(axis=1)
+                k = int(np.argmin(d))
+                if d[k] <= SIFT_KP_TOL_PX and int(cand[k]) not in used:
+                    used.add(int(cand[k]))
+                    out.append((int(cand[k]), int(j)))
+        return out
 
     def compare(fa, fb):
-        ka, kb = keyed(fa), keyed(fb)
-        common = sorted(set(ka) & set(kb))
-        same_kp = len(common) / max(len(ka), len(kb), 1)
-        ra = fa["desc_bits"][[ka[k] for k in common]]
-        rb = fb["desc_bits"][[kb[k] for k in common]]
-        ang = np.abs(fa["angle"][[ka[k] for k in common]] - fb["angle"][[kb[k] for k in common]])
+        pa = pairs(fa, fb)
+        ia, ib = [a for a, _ in pa], [b for _, b in pa]
+        n_a, n_b = int(fa["valid"].sum()), int(fb["valid"].sum())
+        same_kp = len(pa) / max(n_a, n_b, 1)
+        ra = fa["desc_bits"][ia]
+        rb = fb["desc_bits"][ib]
+        ang = np.abs(fa["angle"][ia] - fb["angle"][ib])
         med_ang = float(np.median(ang)) if len(ang) else float("inf")
         if ra.dtype == np.uint8:
             same_rows = (ra == rb).all(axis=1)
@@ -1535,7 +1592,7 @@ def family_extraction(torch, device, feature, img8):
             row_err = np.abs(ra - rb).max(axis=1) if len(ra) else np.zeros(0)
             same_rows = row_err <= MAX_FLOAT_DESC_ERR
             err = float(row_err.max()) if len(ra) else 0.0
-        return len(kb), len(ka), same_kp, ra, float(same_rows.mean()), err, med_ang
+        return n_b, n_a, same_kp, ra, float(same_rows.mean()), err, med_ang
 
     n_c, n_d, same_kp, rd, same_rows, err, med_ang = compare(fd, fc)
     *_, same_kp_s, _, same_rows_s, err_s, med_ang_s = compare(fd, fs)
@@ -1546,19 +1603,21 @@ def family_extraction(torch, device, feature, img8):
         desc_line = (f"{same_rows:.4f} of rows within {MAX_FLOAT_DESC_ERR:g} "
                      f"({same_rows_s:.4f} at the card's levels), max abs err {err:.3g} "
                      f"({err_s:.3g})")
-        # M-SURF's orientation bins per-sample angles: a last-bit change
-        # can move a sample to the next bin and, once in a while, the
-        # whole window, so kaze64 is held by the share of rows
+        # M-SURF's and SIFT's orientations bin per-sample angles: a
+        # last-bit change can move a sample to the next bin and, once in a
+        # while, the whole window, so kaze64 and sift128 are held by the
+        # share of rows
         desc_ok = same_rows >= MIN_FAMILY_AGREE and (
-            same_rows_s >= MIN_FAMILY_AGREE if nonlinear else err_s <= MAX_FLOAT_DESC_ERR)
-    if nonlinear and cuda_fast.fast_nms.launches != n_k1:
-        raise AssertionError(f"[{feature}] K1 launched by the nonlinear extraction")
+            same_rows_s >= MIN_FAMILY_AGREE if nonlinear or sift
+            else err_s <= MAX_FLOAT_DESC_ERR)
+    if cfg.detector != "fast" and cuda_fast.fast_nms.launches != n_k1:
+        raise AssertionError(f"[{feature}] K1 launched by the {cfg.detector} extraction")
     e_ms = time_ms(torch, lambda: ext(img), reps=10)
     log(f"[{feature}] extraction card vs CPU: {level_line}; {n_c} / {n_d} valid keypoints, "
         f"{same_kp:.4f} equal (level, x, y) ({same_kp_s:.4f} at the card's levels); "
         f"descriptors {rd.dtype} x {rd.shape[1]}: {desc_line}; median angle err "
         f"{med_ang:.3g} rad ({med_ang_s:.3g}); {e_ms:.3f} ms on the card (eager)")
-    if nonlinear:
+    if cfg.detector != "fast":
         extraction_profile(torch, feature, ext, img, e_ms)
     if not (min(same_kp, same_kp_s) >= MIN_FAMILY_AGREE and desc_ok
             and max(med_ang, med_ang_s) < MAX_MEDIAN_ANGLE_ERR):
@@ -1575,9 +1634,10 @@ def nonlinear_k(torch, ext, img):
 
 
 def extraction_profile(torch, feature, ext, img, eager_ms):
-    """Where a nonlinear extraction's time goes: its kernel launches and
-    summed device time (torch.profiler) beside its eager time, split into
-    the scale space and the detection + description."""
+    """Where an extraction without K1 (akaze61, kaze64, surf64, sift128)
+    spends its time: its kernel launches and summed device time
+    (torch.profiler) beside its eager time, split into the scale space (or
+    pyramid) and the detection + description."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(fn):
@@ -1597,27 +1657,32 @@ def extraction_profile(torch, feature, ext, img, eager_ms):
         f"{100 * (d_space + d_desc) / eager_ms:.1f}%")
 
 
-def family_phase(torch, device, feature, frames):
+def family_phase(torch, device, feature, frames, sc=None, image_paths=None):
     """Phase 13 for one family: K1 (FAST families) and the extraction
     (``family_extraction``), then the System with the JAX System's
     defaults (asynchronous mapping, the family's shipped vocabulary, loop
     detection at every event) over frames: 0 resets, >= 45 tracked,
     keyframe ATE < MAX_FAMILY_ATE_M; K1 once per frame (once more for a
-    rebuilt initialization) for a FAST family and never for akaze61 /
-    kaze64, K2 from the init, tracking and fusion searches; K2 held against its twin at the recorded inputs of the init
+    rebuilt initialization) for a FAST family and never for the others,
+    K2 from the init, tracking and fusion searches; K2 held against its twin at the recorded inputs of the init
     search, the tracked frame's reference-keyframe search (no window), one
     of its windowed searches (motion model or local map, the one with the
     most active queries) and one fusion search, each row with the
     launches of its kind. Counts set to 0 just before the System run,
-    read just after. Returns (K1 launches, K1 max abs err, pack launches,
-    K2 rows by search)."""
+    read just after. With image_paths (phase 14, r2d2_128: frames of the
+    scene `sc` whose features are read from those files) there is no
+    extraction, and the vocabulary is trained online, so the events
+    before it have no loop stage. Returns (K1 launches, K1 max abs err,
+    pack launches, K2 rows by search)."""
     import numpy as np
 
     from torch_slice_scene import FIRST_TRACKED
 
     from anyfeature_vslam_tpu_torch.ops import cuda_match
 
-    k1_err = family_extraction(torch, device, feature, frames[FIRST_TRACKED])
+    precomputed = image_paths is not None
+    k1_err = None if precomputed else family_extraction(torch, device, feature,
+                                                          frames[FIRST_TRACKED])
     counters = _counters()
     recorded = {}
     torch.cuda.synchronize()
@@ -1626,7 +1691,8 @@ def family_phase(torch, device, feature, frames):
     t0 = time.perf_counter()
     system, rows, events, sc, k2_by, probe = system_run(
         torch, W, H, len(frames), device, record=recorded, frames=frames, sync=False,
-        feature=feature)
+        feature=feature, sc=sc, image_paths=image_paths,
+        record_event=RECORDED_EVENT if image_paths is None else RECORDED_EVENT_R2D2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, pack = (c.launches for c in counters)
@@ -1659,10 +1725,10 @@ def family_phase(torch, device, feature, frames):
     if not kf_ate < MAX_FAMILY_ATE_M:
         fail.append(f"keyframe ATE {kf_ate:.4f} m")
     if system.vocabulary is None or system.loop_closer is None:
-        fail.append("the System runs without the shipped vocabulary or loop closing")
-    elif len(system.loop_times) != len(events):
+        fail.append("the System runs without a vocabulary or loop closing")
+    elif len(system.loop_times) != len(events) and not precomputed:
         fail.append("a keyframe event without its loop stage")
-    if k1_err is None:  # akaze61 / kaze64 detect on the nonlinear scale space
+    if k1_err is None:  # the families without FAST detection
         if k1 != 0:
             fail.append(f"{k1} K1 launches")
     # a rebuilt initialization extracts its frame again (init extractor)
@@ -1706,6 +1772,31 @@ def family_phase(torch, device, feature, frames):
             torch, a, kw, f"{feature} {label} search ({active((a, kw))} active queries)")
         k2_rows[label]["launches"] = launches
     return dict(k1=k1, k1_err=k1_err, pack=pack, k2_rows=k2_rows)
+
+
+N_R2D2_LANDMARKS = 7000  # keeps the 2000 init and 1000 tracking slots full at 640x480
+
+
+def r2d2_phase(torch, device):
+    """Phase 14: r2d2_128 (precomputed 128-d float features) at 640x480
+    with 1000 features: tests/r2d2_scene.py's landmark scene over
+    N_FAMILY_FRAMES frames, its .bin files written to a temporary folder,
+    each frame a flat gray uint8 array passed with its image path; then
+    ``family_phase``'s System run, gates and K2 rows (D = 128)."""
+    import tempfile
+
+    from r2d2_scene import R2d2Scene
+
+    sc = R2d2Scene(W, H, n_frames=N_FAMILY_FRAMES, n_pts=N_R2D2_LANDMARKS)
+    with tempfile.TemporaryDirectory() as root:
+        paths = sc.write(root)
+        visible = [len(sc.features(i)[1]) for i in (0, N_FAMILY_FRAMES - 1)]
+        log(f"[r2d2_128] {len(paths)} frames of {N_R2D2_LANDMARKS} landmarks written; "
+            f"{visible} visible at the first and last frame")
+        if min(visible) < 2 * N_FEATURES:
+            raise AssertionError(f"[r2d2_128] the scene does not fill the init slots: {visible}")
+        return family_phase(torch, device, "r2d2_128", [sc.image()] * N_FAMILY_FRAMES,
+                            sc=sc, image_paths=paths)
 
 
 def main() -> int:
@@ -2148,8 +2239,8 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 13 begins")
     # ---- 13. the other families: K1 on the FAST families' pyramids (none on
     # akaze61 / kaze64), their extraction, the System with the JAX
-    # defaults, K2 (384 / 488 / 512 bits, float 48 / 64) held against its
-    # twin at their recorded searches
+    # defaults, K2 (384 / 488 / 512 bits, float 48 / 64 / 128) held against
+    # its twin at their recorded searches
     t_phase = time.perf_counter()
     fam, fam_failed = {}, []
     for feature in FAMILIES:
@@ -2164,10 +2255,16 @@ def main() -> int:
         log(f"[phase 13] {feature} {time.perf_counter() - t_fam:.1f} s")
     if fam_failed:
         raise AssertionError(f"phase 13 failed for {fam_failed}")
+    log(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 14 begins")
+    # ---- 14. r2d2_128: precomputed features, K2 at D = 128
+    t_phase = time.perf_counter()
+    fam["r2d2_128"] = r2d2_phase(torch, device)
+    log(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
     k1_err = max([k1_err] + [r["k1_err"] for r in fam.values() if r["k1_err"] is not None])
     k2_err = max([k2_err] + [k["max_abs_err"] for r in fam.values()
                              for k in r["k2_rows"].values()])
-    log(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
 
     # per tracked frame: K1 over the 8 levels; pack_bits at frame 13's
     # keypoints; K2 once per search: the tracked frame's searches (frame

@@ -13,13 +13,17 @@ import torch
 
 from anyfeature_vslam_tpu.frontend import brief as jbrief
 from anyfeature_vslam_tpu.frontend import extractor as jext
+from anyfeature_vslam_tpu.frontend import dog as jdog
 from anyfeature_vslam_tpu.frontend import fast as jfast
+from anyfeature_vslam_tpu.frontend import graddesc as jgrad
 from anyfeature_vslam_tpu.frontend import mldb as jmldb
 from anyfeature_vslam_tpu.frontend import msurf as jmsurf
 from anyfeature_vslam_tpu.frontend import nonlinear as jnl
 from anyfeature_vslam_tpu.frontend import orientation as jorient
 from anyfeature_vslam_tpu.frontend import pyramid as jpyr
+from anyfeature_vslam_tpu.frontend import scalespace as jss
 from anyfeature_vslam_tpu.frontend import select as jselect
+from anyfeature_vslam_tpu.io import precomputed as jpre
 from anyfeature_vslam_tpu.ops import camera as jcam
 from anyfeature_vslam_tpu.ops import matching as jmatch
 from anyfeature_vslam_tpu.ops import pallas_match as jpm
@@ -27,13 +31,17 @@ from anyfeature_vslam_tpu.ops import pose_opt as jpose
 from anyfeature_vslam_tpu.slam import frame_ops as jframe
 from anyfeature_vslam_tpu_torch.frontend import brief as tbrief
 from anyfeature_vslam_tpu_torch.frontend import extractor as text
+from anyfeature_vslam_tpu_torch.frontend import dog as tdog
 from anyfeature_vslam_tpu_torch.frontend import fast as tfast
+from anyfeature_vslam_tpu_torch.frontend import graddesc as tgrad
 from anyfeature_vslam_tpu_torch.frontend import mldb as tmldb
 from anyfeature_vslam_tpu_torch.frontend import msurf as tmsurf
 from anyfeature_vslam_tpu_torch.frontend import nonlinear as tnl
 from anyfeature_vslam_tpu_torch.frontend import orientation as torient
 from anyfeature_vslam_tpu_torch.frontend import pyramid as tpyr
+from anyfeature_vslam_tpu_torch.frontend import scalespace as tss
 from anyfeature_vslam_tpu_torch.frontend import select as tselect
+from anyfeature_vslam_tpu_torch.io import precomputed as tpre
 from anyfeature_vslam_tpu_torch.ops import camera as tcam
 from anyfeature_vslam_tpu_torch.ops import matching as tmatch
 from anyfeature_vslam_tpu_torch.ops import pose_opt as tpose
@@ -181,6 +189,84 @@ def test_msurf_cell_weights_and_constants():
     np.testing.assert_array_equal(tmsurf._cell_weights(), jmsurf._cell_weights())
 
 
+def test_graddesc_constants():
+    for name in ("PATCH", "CELLS", "_SPACING", "N_ROT", "PATCH_RADIUS", "_P", "_N_SAMP",
+                 "N_ORI_BINS"):
+        assert getattr(tgrad, name) == getattr(jgrad, name), name
+    np.testing.assert_array_equal(tgrad._CELL_OF, jgrad._CELL_OF)
+    np.testing.assert_array_equal(tgrad._cell_matrix(), jgrad._CELL_MAT)
+    np.testing.assert_array_equal(tgrad._ori_weight_np(), jgrad._ORI_W)
+    # the rotation table is what jnp.cos / jnp.sin give at each step's angle
+    th = jnp.arange(jgrad.N_ROT).astype(jnp.float32) * (2.0 * jnp.pi / jgrad.N_ROT)
+    np.testing.assert_array_equal(tgrad._rotation_table_np(),
+                                  np.stack([np.asarray(jnp.cos(th)), np.asarray(jnp.sin(th))], 1))
+    sample, cell, rot, ori = tgrad.tensors()
+    np.testing.assert_array_equal(sample.numpy(), np.asarray(
+        jnp.asarray(jgrad._sample_mat(), jnp.bfloat16).astype(jnp.float32)))
+    assert cell.shape == (400, 16) and rot.shape == (16, 2) and ori.shape == (961,)
+
+
+def test_scalespace_and_dog_constants():
+    for name in ("SIGMA0", "ASSUMED_BLUR", "EDGE_R", "MIN_OCTAVE_DIM"):
+        assert getattr(tss, name) == getattr(jss, name), name
+    assert (tdog.SIGMA_A, tdog.SIGMA_B) == (jdog.SIGMA_A, jdog.SIGMA_B)
+    for nspo in (1, 2, 3):
+        assert tss.slice_sigmas(nspo) == jss.slice_sigmas(nspo)
+    for h, w in ((480, 640), (240, 320), (120, 160), (64, 64), (31, 40)):
+        for m in (1, 4, 8):
+            assert tss.n_octaves(h, w, m) == jss.n_octaves(h, w, m)
+        assert tss.octave_shape(h, w) == jss.downsample2(jnp.zeros((h, w))).shape
+    # the blurs' taps: JAX's sigma and radius at every call site
+    sig = jss.slice_sigmas(2)
+    incs = [float(np.sqrt(sig[i] ** 2 - sig[i - 1] ** 2)) for i in range(1, 5)]
+    assert tss.increment_sigmas(2) == incs
+    inc0 = float(np.sqrt(jss.SIGMA0 ** 2 - jss.ASSUMED_BLUR ** 2))
+    assert tss.base_sigma() == inc0
+    for s in incs + [inc0, 2.0]:
+        np.testing.assert_array_equal(
+            tss.taps(s).numpy(), jpyr.gaussian_kernel1d(s, max(int(np.ceil(3 * s)), 1)))
+    for t, (s, r) in zip(tdog.tensors("dog"), ((jdog.SIGMA_A, 3), (jdog.SIGMA_B, 5))):
+        np.testing.assert_array_equal(t.numpy(), jpyr.gaussian_kernel1d(s, r))
+    np.testing.assert_array_equal(tdog.tensors("hessian")[0].numpy(),
+                                  jpyr.gaussian_kernel1d(2.0, 6))
+
+
+def test_sift_unit_budgets():
+    for total in (500, 600, 1000, 1200, 2000):
+        for n_units, nspo in ((6, 2), (8, 2), (4, 1), (9, 3)):
+            got = text._sift_unit_budgets(total, n_units, nspo)
+            assert got == jext._sift_unit_budgets(total, n_units, nspo)
+            assert sum(got) == total
+
+
+def test_precomputed_copy_matches_jax(tmp_path):
+    assert tpre.ORB_MAX_SIZE == jpre.ORB_MAX_SIZE
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "seq" / "rgb" / "000007.png")
+    assert tpre.feature_paths(path) == jpre.feature_paths(path)
+    assert tpre.feature_paths(path, "sp") == jpre.feature_paths(path, "sp")
+    kp_path, sc_path, de_path = tpre.feature_paths(path)
+    for p in (kp_path, sc_path, de_path):
+        os.makedirs(os.path.dirname(p))
+    # ties in the scores (a stable sort), sizes spread and equal
+    for n, sizes in ((50, rng.uniform(1, 9, 50)), (30, np.full(30, 3.0))):
+        kps = np.stack([rng.uniform(0, 640, n), rng.uniform(0, 480, n), sizes], 1)
+        np.concatenate([kps, kps[:5]]).tofile(kp_path)
+        np.round(rng.uniform(0, 1, n + 5), 1).tofile(sc_path)
+        rng.normal(size=(n + 3, 128)).tofile(de_path)
+        for cap in (10, n, 2 * n):
+            want = jpre.load_precomputed_features(path, cap)
+            got = tpre.load_precomputed_features(path, cap)
+            assert set(got) == set(want)
+            for k in want:
+                assert got[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(got[k], want[k])
+    np.testing.assert_array_equal(tpre.load_bin(kp_path, 3), jpre.load_bin(kp_path, 3))
+    for mod in (tpre, jpre):
+        with pytest.raises(ValueError, match="not divisible"):
+            mod.load_bin(de_path, 7)
+
+
 def test_port_imports_neither_jax_nor_pil():
     code = (
         "import pkgutil, importlib, sys\n"
@@ -188,10 +274,11 @@ def test_port_imports_neither_jax_nor_pil():
         "import anyfeature_vslam_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "import torch_slice_scene\n"
+        "import torch_slice_scene, r2d2_scene\n"
         "assert 'anyfeature_vslam_tpu_torch.slam.fast_track' in mods, mods\n"
         "for m in ('place_recognition.vocab', 'place_recognition.database', 'slam.loop_closing',\n"
-        "          'ops.pnp', 'ops.sim3', 'ops.pose_graph'):\n"
+        "          'ops.pnp', 'ops.sim3', 'ops.pose_graph', 'frontend.scalespace',\n"
+        "          'frontend.dog', 'frontend.graddesc', 'io.precomputed'):\n"
         "    assert 'anyfeature_vslam_tpu_torch.' + m in mods, (m, mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'PIL', 'anyfeature_vslam_tpu.'))]\n"
         "assert not bad, bad\n"

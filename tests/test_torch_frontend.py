@@ -29,7 +29,8 @@ from anyfeature_vslam_tpu_torch.frontend import cuda_fast
 from anyfeature_vslam_tpu_torch.frontend import orientation as torient
 from anyfeature_vslam_tpu_torch.frontend import pyramid as tpyr
 from anyfeature_vslam_tpu_torch.frontend import select as tselect
-from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, OrbExtractor
+from anyfeature_vslam_tpu_torch.frontend.extractor import (ExtractorConfig, OrbExtractor,
+                                                           SiftExtractor, make_extractor)
 from torch_slice_scene import SliceScene
 
 H, W = 240, 320
@@ -130,5 +131,13 @@ def test_extract_features_on_rendered_frame(frame, extractor):
 
 @pytest.mark.parametrize("name", ["surf64", "sift128"])
 def test_other_families_raise_with_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OrbExtractor(ExtractorConfig.for_feature(name), H, W)
+    """Both families are ported: surf64 is the pyramid extractor's (det(H)
+    detection, grad64), while sift128's scale space is SiftExtractor's,
+    so the pyramid extractor refuses it and make_extractor builds it."""
+    cfg = ExtractorConfig.for_feature(name)
+    if name == "surf64":
+        assert OrbExtractor(cfg, H, W).cfg.detector == "hessian"
+    else:
+        with pytest.raises(ValueError, match="make_extractor"):
+            OrbExtractor(cfg, H, W)
+        assert isinstance(make_extractor(cfg, H, W), SiftExtractor)
