@@ -1,4 +1,4 @@
-"""CLI: monocular SLAM over a sequence directory with the torch port, in the
+"""CLI: SLAM over a sequence directory with the torch port, in the
 reference binary's ``key:value`` argument style (reference
 src/vslamlab_anyfeature_mono.cpp:47-109):
 
@@ -6,10 +6,11 @@ src/vslamlab_anyfeature_mono.cpp:47-109):
         sequence_path:/path/to/seq feature:orb32 exp_folder:/tmp/out \\
         exp_id:exp01 max_frames:100 verbose:1 device:cuda
 
-Runs on the card unless ``device:cpu`` is given. ``vocabulary_folder:``
-names a folder to take the feature's vocabulary from; without it the
-shipped one is used. Reading PNG frames needs
-PIL.
+Runs on the card unless ``device:cpu`` is given. ``sensor:rgbd
+bf:<baseline * fx>`` tracks a TUM RGB-D layout (rgb.txt + depth.txt) with
+its depth maps. ``vocabulary_folder:`` names a folder to take the
+feature's vocabulary from; without it the shipped one is used. Reading PNG
+frames needs PIL.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def main(argv=None):
         rgb_csv=args.get("rgb_csv"),
         feature_yaml=args.get("feature_yaml"),
         vocabulary_folder=args.get("vocabulary_folder"),
+        sensor=args.get("sensor", "monocular"),
+        bf=float(args.get("bf", 0.0)),
         pace=args.get("pace", "0") not in ("0", "false"),
         n_features=int(args["n_features"]) if "n_features" in args else None,
         device=args.get("device", "cuda"),

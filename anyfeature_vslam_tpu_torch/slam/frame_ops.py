@@ -1,5 +1,5 @@
 """Frame-level searches and the mapping's batched programs (port of
-anyfeature_vslam_tpu/slam/frame_ops.py, monocular part).
+anyfeature_vslam_tpu/slam/frame_ops.py).
 
 Every guided search goes through ``matching.guided_best_two``, so on the
 card each one is a launch of kernel K2: the tracked frame's searches, the
@@ -8,8 +8,10 @@ loop-closing searches. The searches over one keypoint set take
 ``f_words``, its descriptors prepared once by the caller
 (``cuda_match.pack_candidates``: binary ones packed, float ones with
 their norms); without them the search prepares its candidates itself.
-The triangulation search is a dense masked Hamming
-(binary) or squared-L2 (float) matrix, as in the JAX package. Frustum
+The triangulation search and the stereo row search
+(``match_stereo_rows``) are dense masked Hamming (binary) or squared-L2
+(float) matrices, as in the JAX package: neither gate is K2's window
+gate. Frustum
 check: Frame::isInFrustum (reference src/Frame.cc:276-331); searches:
 SearchByProjection and its frame-to-frame form (reference
 src/FeatureMatcher.cc:73-154, :1291-1404), the Sim3-guided form of loop
@@ -139,6 +141,80 @@ def match_for_initialization(uv1, bits1, oct1, angle1, valid1, uv2, bits2, oct2,
     )
     return matching.finish_match(best, idx, second, bits2.shape[0], match_th, ratio=ratio,
                                  angle_q=angle1, angle_c=angle2, unique=True)
+
+
+def match_stereo_rows(bits_l, uv_l, size_l, valid_l, bits_r, uv_r, size_r, valid_r,
+                      match_th, min_disp, max_disp):
+    """Rectified stereo, left against right keypoints in one masked
+    distance matrix (reference Frame::ComputeStereoMatches,
+    src/Frame.cc:465, by per-row candidate lists): the row band |v_l -
+    v_r| <= max(2 size_r, 2), min_disp < disparity < max_disp, the
+    descriptor threshold, a 0.9 ratio and one left keypoint per right
+    one. Returns dict(idx, dist, valid, disparity) over left keypoints
+    (disparity -1 where no match)."""
+    dist = matching.descriptor_distance_matrix(bits_l, bits_r)
+    dv = torch.abs(uv_l[:, None, 1] - uv_r[None, :, 1])
+    band = torch.clamp(2.0 * size_r[None, :], min=2.0)
+    disp = uv_l[:, None, 0] - uv_r[None, :, 0]
+    mask = (valid_l[:, None] & valid_r[None, :] & (dv <= band) & (disp > min_disp)
+            & (disp < max_disp))
+    res = matching.match(dist, mask, match_th, ratio=0.9, unique=True)
+    disparity = uv_l[:, 0] - uv_r[res["idx"], 0]
+    res["disparity"] = torch.where(res["valid"], disparity, torch.full_like(disparity, -1.0))
+    return res
+
+
+SUBPIX_W = 5   # reference Frame.cc:566-620: 11x11 SAD window (w = 5)
+SUBPIX_L = 5   # the window slides +-L columns around the match
+
+
+def match_stereo_rows_subpix(img_l, img_r, bits_l, uv_l, size_l, valid_l, bits_r, uv_r,
+                             size_r, valid_r, match_th, min_disp, max_disp):
+    """``match_stereo_rows``, then each match refined to sub-pixel: an 11x11
+    window, centre-normalized (its centre intensity subtracted), slid
+    +-5 columns around the matched right keypoint, and a parabola through
+    the best SAD and its neighbours (reference ComputeStereoMatches,
+    src/Frame.cc:566-620). As in the JAX package the SAD runs on the
+    full-resolution images (the reference correlates on the keypoint's
+    pyramid level), and a match whose refined disparity leaves the range
+    is dropped. Returns dict(idx, dist, valid, disparity)."""
+    res = match_stereo_rows(bits_l, uv_l, size_l, valid_l, bits_r, uv_r, size_r, valid_r,
+                            match_th, min_disp, max_disp)
+    h, w_img = img_l.shape
+    dev = uv_l.device
+    # torch.round, as jnp.round, rounds half to even
+    xl = torch.round(uv_l[:, 0]).to(torch.int64)
+    yl = torch.round(uv_l[:, 1]).to(torch.int64)
+    xr = torch.round(uv_r[res["idx"], 0]).to(torch.int64)
+    off = torch.arange(-SUBPIX_W, SUBPIX_W + 1, device=dev)
+    ly = torch.clamp(yl[:, None, None] + off[None, :, None], 0, h - 1)
+    lx = torch.clamp(xl[:, None, None] + off[None, None, :], 0, w_img - 1)
+    patch_l = img_l[ly, lx]                                   # (N, 11, 11)
+    patch_l = patch_l - patch_l[:, SUBPIX_W:SUBPIX_W + 1, SUBPIX_W:SUBPIX_W + 1]
+    slides = torch.arange(-SUBPIX_L, SUBPIX_L + 1, device=dev)
+    rx = torch.clamp(xr[:, None, None, None] + slides[None, :, None, None]
+                     + off[None, None, None, :], 0, w_img - 1)    # (N, 11s, 1, 11)
+    ry = torch.clamp(yl[:, None, None, None] + off[None, None, :, None], 0, h - 1)
+    patch_r = img_r[ry, rx]                                   # (N, 11s, 11, 11)
+    patch_r = patch_r - patch_r[:, :, SUBPIX_W:SUBPIX_W + 1, SUBPIX_W:SUBPIX_W + 1]
+    sad = torch.sum(torch.abs(patch_r - patch_l[:, None, :, :]), dim=(-2, -1))
+    best = torch.argmin(sad, dim=1)  # the first minimum, as jnp.argmin
+    interior = (best > 0) & (best < 2 * SUBPIX_L)
+    bc = torch.clamp(best, 1, 2 * SUBPIX_L - 1)
+    s_prev = torch.gather(sad, 1, (bc - 1)[:, None])[:, 0]
+    s_best = torch.gather(sad, 1, bc[:, None])[:, 0]
+    s_next = torch.gather(sad, 1, (bc + 1)[:, None])[:, 0]
+    denom = s_prev - 2.0 * s_best + s_next
+    delta = torch.where(torch.abs(denom) > 1e-9, (s_prev - s_next) / (2.0 * denom),
+                        torch.zeros_like(denom))
+    delta = torch.clamp(delta, -1.0, 1.0)
+    corr = torch.where(interior, (bc - SUBPIX_L).to(delta.dtype) + delta,
+                       torch.zeros_like(delta))
+    disp = uv_l[:, 0] - (xr.to(torch.float32) + corr)
+    ok = res["valid"] & (disp > min_disp) & (disp < max_disp)
+    res["disparity"] = torch.where(ok, disp, torch.full_like(disp, -1.0))
+    res["valid"] = ok
+    return res
 
 
 def match_for_triangulation(bits1, uv1, valid1, bits2, uv2, valid2, oct2_sigma2, f12,

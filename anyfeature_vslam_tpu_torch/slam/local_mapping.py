@@ -1,12 +1,14 @@
 """Local mapping: keyframe processing, triangulation, fusion, culling and
-local BA (port of anyfeature_vslam_tpu/slam/local_mapping.py, monocular).
+local BA (port of anyfeature_vslam_tpu/slam/local_mapping.py).
 
 Per new keyframe (reference LocalMapping::Run, src/LocalMapping.cc:48-119):
 observation bookkeeping, recent-map-point culling (:194-229), new-point
 triangulation against the best covisible keyframes (:231-473), fusion with
 the neighbours in both directions (:475-555), local bundle adjustment with
 outlier erasure (two-stage schedule, reference src/Optimizer.cc:450-768)
-and redundant-keyframe culling (:651-741).
+and redundant-keyframe culling (:651-741). Outside monocular (RGB-D,
+stereo) fusion and triangulation take 10 neighbours instead of 20, and
+culling counts only a keyframe's close depth points.
 
 Each device program is a dispatch (``_dispatch_*``: the searches issued,
 their results copied toward the host behind a ``streams.Ready`` probe) and
@@ -200,10 +202,11 @@ def _assemble_ba(slam_map, free_kfs, fixed_kfs, pt_ids):
 
 
 class LocalMapper:
-    """Monocular local mapping over a SlamMap. intrinsics: (fx, fy, cx, cy)
-    Python floats; width, height: the image size (fusion bounds); device:
-    where the mapping programs run; lock: the System's map lock (a private
-    one otherwise), held only around the event's map mutations."""
+    """Local mapping over a SlamMap. intrinsics: (fx, fy, cx, cy) Python
+    floats; width, height: the image size (fusion bounds); device: where
+    the mapping programs run; lock: the System's map lock (a private one
+    otherwise), held only around the event's map mutations; sensor,
+    th_depth: the tracker's (System.h:54-60, the close-point depth)."""
 
     # neighbour schedules of the JAX package (targets are processed up to
     # the padded count; see _pad_sched)
@@ -212,6 +215,7 @@ class LocalMapper:
 
     def __init__(self, slam_map: SlamMap, intrinsics, width: int, height: int,
                  match_th: float = 75.0, max_ba_kfs: int = 20, size_tolerance: float = 1.2,
+                 sensor: str = "monocular", th_depth: float = 0.0,
                  device="cuda", lock=None):
         self.map = slam_map
         self.intrinsics = tuple(float(v) for v in intrinsics)
@@ -220,6 +224,8 @@ class LocalMapper:
         self.width, self.height = int(width), int(height)
         self.match_th = match_th
         self.max_ba_kfs = max_ba_kfs
+        self.sensor = sensor
+        self.th_depth = float(th_depth)
         # sizeTolerance = extractor scale factor (reference src/Frame.cc:73)
         self.size_tolerance = float(size_tolerance)
         self.device = torch.device(device)
@@ -422,9 +428,12 @@ class LocalMapper:
         """Reference SearchInNeighbors (LocalMapping.cc:475-555): project the
         new keyframe's points into its first- and second-order covisible
         neighbours and theirs into it (one K2 launch per target and
-        direction). Returns a pending record for _fold_fuse, or None."""
+        direction): 20 first-order neighbours (10 outside monocular,
+        reference LocalMapping.cc:477-479) and 5 second-order ones of each.
+        Returns a pending record for _fold_fuse, or None."""
         m = self.map
-        first, _ = m.covisible_keyframes(kf, min_weight=15, max_n=20)
+        nn = 20 if self.sensor == "monocular" else 10
+        first, _ = m.covisible_keyframes(kf, min_weight=15, max_n=nn)
         targets = []
         for n1 in first:
             targets.append(int(n1))
@@ -582,10 +591,12 @@ class LocalMapper:
     # ------------------------------------------------------------------
     def _dispatch_new_points(self, kf: int):
         """Reference CreateNewMapPoints (LocalMapping.cc:231-473) against up
-        to 20 covisible neighbours (frame_ops.triangulate_with_neighbors).
-        Returns a pending record for _fold_new_points, or None."""
+        to 20 covisible neighbours (10 outside monocular;
+        frame_ops.triangulate_with_neighbors). Returns a pending record for
+        _fold_new_points, or None."""
         m = self.map
-        neighbors, _ = m.covisible_keyframes(kf, min_weight=15, max_n=20)
+        nn = 20 if self.sensor == "monocular" else 10
+        neighbors, _ = m.covisible_keyframes(kf, min_weight=15, max_n=nn)
         neighbors = [int(x) for x in neighbors]
         if not neighbors:
             others = [int(k) for k in m.keyframe_ids() if k != kf]
@@ -708,8 +719,9 @@ class LocalMapper:
     # ------------------------------------------------------------------
     def _cull_keyframes(self, kf: int):
         """Reference KeyFrameCulling (LocalMapping.cc:651-741): a covisible
-        keyframe is redundant if > 90% of its points with > 3 observations
-        are seen by >= 3 other keyframes at finer-or-equal scale."""
+        keyframe is redundant if > 90% of its points (its close depth
+        points, for a depth sensor) with > 3 weighted observations are seen
+        by >= 3 other keyframes at finer-or-equal scale."""
         m = self.map
         cov, _ = m.covisible_keyframes(kf, min_weight=15)
         counts = m.point_observation_counts(stereo_weighted=True)
@@ -719,6 +731,10 @@ class LocalMapper:
                 continue  # never cull the first keyframe
             mm = m.kf_matches[cand]
             slots = np.nonzero(mm >= 0)[0]
+            if self.sensor != "monocular":
+                # only close depth points count (LocalMapping.cc:678-681)
+                d = m.kf_depth[cand][slots]
+                slots = slots[(d > 0) & (d <= self.th_depth)]
             if len(slots) < 10:
                 continue
             pts = mm[slots]

@@ -1,12 +1,14 @@
 """System facade: wires tracking, local mapping, place recognition and
 loop closing, runs sequences, saves output and checkpoints (port of
-anyfeature_vslam_tpu/system.py, monocular).
+anyfeature_vslam_tpu/system.py).
 
 The counterpart of the reference ``System`` (include/System.h:52,
 src/System.cc): builds the map, the tracker and the local mapper, loads
 the vocabulary (by default the shipped ``vocabularies/voc_<feature>_*.npz``)
 and with it the keyframe database (relocalization) and the loop closer,
-routes frames and saves trajectories, statistics and checkpoints. Its
+routes frames (``track_monocular``, ``track_rgbd``, ``track_stereo`` by
+``sensor``) and saves trajectories, statistics and checkpoints;
+``activate_localization_mode`` stops mapping from the next frame on. Its
 defaults are the JAX System's. Three schedules:
 
 - ``async_mapping=False``: each frame and each keyframe event (local
@@ -199,8 +201,12 @@ class System:
             raise ValueError(f"unknown feature type: {feature} (known: {sorted(FEATURE_REGISTRY)})")
         if sensor not in ("monocular", "rgbd", "stereo"):
             raise ValueError(f"unknown sensor: {sensor}")
-        if sensor != "monocular":
-            _not_ported(f"sensor={sensor!r} (RGB-D and stereo tracking)", "10")
+        if sensor != "monocular" and bf <= 0:
+            raise ValueError("rgbd/stereo sensors need bf = baseline * fx > 0")
+        if sensor != "monocular" and th_depth <= 0:
+            # ORB-SLAM2's default: 35 baselines (ThDepth = 35, reference
+            # Tracking.cc:1460; mThDepth = bf * ThDepth / fx)
+            th_depth = 35.0 * bf / float(camera.fx)
         if use_mesh is True:
             _not_ported("bundle adjustment over a device mesh", "12")
         detector, descriptor, n_oct, scale, detect_th, match_th = FEATURE_REGISTRY[feature]
@@ -220,7 +226,8 @@ class System:
             width=int(camera.width), height=int(camera.height))
         self.camera = camera_from_numpy(cam_host, self.device)
         cfg = TrackingConfig(
-            n_features=n_features, max_frames=max(int(round(fps)), 1), match_th=match_th,
+            n_features=n_features, sensor=sensor, bf=bf, th_depth=th_depth,
+            max_frames=max(int(round(fps)), 1), match_th=match_th,
             detect_th=detect_th, n_levels=n_oct, scale_factor=scale, detector=detector,
             descriptor=descriptor, seed=seed,
         )
@@ -238,7 +245,8 @@ class System:
         self.tracker.map_lock = self.map_lock
         self.local_mapper = LocalMapper(
             self.map, self.tracker.intrinsics, cam_host.width, cam_host.height,
-            match_th=match_th, size_tolerance=scale, device=self.device, lock=self.map_lock)
+            match_th=match_th, size_tolerance=scale, sensor=sensor, th_depth=th_depth,
+            device=self.device, lock=self.map_lock)
         self.tracker.on_new_keyframe = self._on_new_keyframe
         self.tracker.on_keyframe_feats = self.local_mapper.seed_kf_device
         self.tracker.kf_dev = self.local_mapper.kf_dev
@@ -246,6 +254,8 @@ class System:
         self.tracker.mapping_idle = self.local_mapper.is_idle
         self.tracker.interrupt_mapping = self.local_mapper.fold_pending
         self.cam_host = cam_host
+        self.sensor = sensor
+        self.depth_map_factor = depth_map_factor
         self.async_mapping = async_mapping
         self.threaded_mapping = threaded_mapping
         if pipeline_depth is None:
@@ -280,6 +290,8 @@ class System:
             # the worker goes idle
             self.tracker.interrupt_mapping = lambda: None
         self._reset_requested = False
+        self._activate_localization_requested = False
+        self._deactivate_localization_requested = False
         self.frame_times: list[float] = []
         self.mapping_times: list[float] = []
         self.loop_times: list[float] = []
@@ -460,6 +472,37 @@ class System:
         """Track one (H, W) uint8 or float image (numpy, or a tensor).
         image_path: the image's file, where precomputed features (r2d2_128)
         are found (io/precomputed.feature_paths); other families ignore it."""
+        if self.sensor != "monocular":
+            raise RuntimeError("track_monocular called but sensor is " + self.sensor)
+        return self._track(img, ts, image_path=image_path)
+
+    def track_rgbd(self, img, depth: np.ndarray, ts: float) -> TrackState:
+        """Reference System::TrackRGBD (src/System.cc:192-241): an image and
+        its registered depth map (host array, times depth_map_factor gives
+        metres)."""
+        if self.sensor != "rgbd":
+            raise RuntimeError("track_rgbd called but sensor is " + self.sensor)
+        if self.depth_map_factor != 1.0:
+            depth = depth.astype(np.float32) * self.depth_map_factor
+        return self._track(img, ts, depth=depth)
+
+    def track_stereo(self, img_left, img_right, ts: float) -> TrackState:
+        """Reference System::TrackStereo (src/System.cc:141-190): a
+        rectified pair."""
+        if self.sensor != "stereo":
+            raise RuntimeError("track_stereo called but sensor is " + self.sensor)
+        return self._track(img_left, ts, img_right=img_right)
+
+    def _track(self, img, ts, image_path=None, depth=None, img_right=None) -> TrackState:
+        # mode changes and a requested reset land before the frame
+        # (reference System::TrackMonocular :253-285)
+        if self._activate_localization_requested:
+            self.tracker.only_tracking = True
+            self._activate_localization_requested = False
+        if self._deactivate_localization_requested:
+            self.tracker.only_tracking = False
+            self.tracker.mb_vo = False
+            self._deactivate_localization_requested = False
         if self._reset_requested:
             self.reset()
             self._reset_requested = False
@@ -470,7 +513,8 @@ class System:
             self._worker.flush()
         t0 = time.perf_counter()
         with self._turns, streams.use(self._track_stream):
-            state = self.tracker.process_frame(img, ts, image_path=image_path)
+            state = self.tracker.process_frame(img, ts, image_path=image_path, depth=depth,
+                                               img_right=img_right)
         self.frame_times.append(time.perf_counter() - t0)
         return state
 
@@ -496,11 +540,14 @@ class System:
         return f.feats["uv_und"][f.feats["valid"]]
 
     def activate_localization_mode(self):
-        """Localization mode (reference System::ActivateLocalizationMode)."""
-        _not_ported("localization mode", "10")
+        """From the next frame on, stop mapping and track against the
+        frozen map (reference System::ActivateLocalizationMode,
+        include/System.h:88)."""
+        self._activate_localization_requested = True
 
     def deactivate_localization_mode(self):
-        _not_ported("localization mode", "10")
+        """From the next frame on, map again."""
+        self._deactivate_localization_requested = True
 
     # ------------------------------------------------------------- output
     def save_outputs(self, out_dir: str, exp_id: str = "exp"):
@@ -535,29 +582,36 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
                  exp_id: str = "exp", max_frames: int | None = None, verbose: bool = True,
                  calibration_yaml: str | None = None, rgb_csv: str | None = None,
                  feature_yaml: str | None = None, vocabulary_folder: str | None = None,
-                 n_features: int | None = None, pace: bool = False,
-                 threaded_mapping: bool = False, device="cuda"):
+                 sensor: str = "monocular", bf: float = 0.0, n_features: int | None = None,
+                 pace: bool = False, threaded_mapping: bool = False, device="cuda"):
     """End-to-end: load a sequence, run SLAM on `device`, save the
     trajectories. Returns the System. vocabulary_folder: a reference-style
     folder to take the feature's vocabulary from (dataset.find_vocabulary;
     the shipped one otherwise). pace=True replays in real time (the loop
     sleeps to the frames' timestamps, reference
     src/vslamlab_anyfeature_mono.cpp:161-169). threaded_mapping: the
-    System's worker-thread schedule. On the card the next frame's image is
-    read and its upload started (pinned, non_blocking, on the tracker's
-    stream) before the current frame is tracked (not for precomputed
-    features, which the tracker reads from the files beside each image)."""
-    seq = dataset.load_sequence(sequence_path, calibration_yaml=calibration_yaml,
-                                rgb_csv=rgb_csv)
+    System's worker-thread schedule. sensor="rgbd" reads a TUM RGB-D
+    layout (rgb.txt + depth.txt, dataset.load_sequence_rgbd) and tracks
+    each image with its depth map (System.track_rgbd; bf = baseline * fx).
+    On the card a monocular run reads the next frame's image and starts
+    its upload (pinned, non_blocking, on the tracker's stream) before the
+    current frame is tracked (not for precomputed features, which the
+    tracker reads from the files beside each image)."""
+    if sensor == "rgbd":
+        seq = dataset.load_sequence_rgbd(sequence_path, calibration_yaml=calibration_yaml)
+    else:
+        seq = dataset.load_sequence(sequence_path, calibration_yaml=calibration_yaml,
+                                    rgb_csv=rgb_csv)
     feature_settings = dataset.load_feature_settings(feature_yaml) if feature_yaml else None
     vocabulary_path = (dataset.find_vocabulary(vocabulary_folder, feature)
                        if vocabulary_folder else None)
     system = System(seq.camera, feature=feature, fps=seq.fps, feature_settings=feature_settings,
-                    vocabulary_path=vocabulary_path, n_features=n_features,
-                    threaded_mapping=threaded_mapping, device=device)
+                    vocabulary_path=vocabulary_path, sensor=sensor, bf=bf,
+                    n_features=n_features, threaded_mapping=threaded_mapping, device=device)
     n = len(seq.image_paths) if max_frames is None else min(max_frames, len(seq.image_paths))
     # precomputed features are read from files: no image upload to overlap
-    prefetch = system.device.type == "cuda" and not system.tracker.precomputed
+    prefetch = (system.device.type == "cuda" and sensor == "monocular"
+                and not system.tracker.precomputed)
 
     def load(i):
         img = dataset.load_gray(seq.image_paths[i])
@@ -577,7 +631,12 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
         img = nxt
         if i + 1 < n:
             nxt = load(i + 1)
-        state = system.track_monocular(img, seq.timestamps[i], image_path=seq.image_paths[i])
+        if sensor == "rgbd":
+            depth = dataset.load_depth(seq.depth_paths[i], seq.depth_factor)
+            state = system.track_rgbd(img, depth, seq.timestamps[i])
+        else:
+            state = system.track_monocular(img, seq.timestamps[i],
+                                           image_path=seq.image_paths[i])
         if verbose:
             print(f"frame {i}/{n} state={state.name} kfs={system.map.n_keyframes()} "
                   f"pts={system.map.n_points()} inliers={system.tracker.n_inliers}", flush=True)

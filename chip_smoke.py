@@ -53,6 +53,11 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
      frames (LOST) and must relocalize within 3 frames on views at the
      poses of frames 20-22, its camera centre within 5 cm of the truth
      after phase 8's alignment; one K2 search per BoW candidate;
+ 9b. localization mode on that System: the views of the relocalized frame
+     and the 7 before it, retraced backwards (the staged tracker, no
+     mapping): every frame OK, the keyframe and point counts unchanged, K1
+     once per frame; only_tracking cleared at the frame after
+     deactivation;
  10. the live loop closure of tests/test_loop_live.py at 640x480 with 1000
      features: session A maps circle A and saves a checkpoint, session B
      loads it, boots a fresh component and re-enters A; the test's gates:
@@ -113,9 +118,31 @@ relocalization and loop searches.
      with each image path; phase 13's System run, gates and K2 rows at
      D = 128 (0 K1 and 0 pack_bits launches; the vocabulary is trained
      online, so only the events after it run the loop stage).
+ 15. RGB-D at 640x480 with 1000 orb32 features on tests/test_rgbd_stereo.py's
+     scene and poses (fx 520, a 0.1 m baseline; rendered with exact depth
+     on 8 host processes), the System with the JAX defaults and
+     sensor="rgbd" over 40 frames: the instant map at frame 0 (its median
+     point depth within 0.1 m of the rendered median), 0 resets, 0 lost,
+     >= 39 tracked, the keyframes' metric displacement within 12% of the
+     truth, every keyframe with > 100 matches, K1 once per frame, K2 by
+     search (the staged tracker's motion-model, reference-keyframe and
+     local-map searches labelled apart); ms per frame with and without an
+     event, host syncs per frame over frames 1-8; then localization mode:
+     its last 8 frames retraced backwards, then 50 frames out beyond the
+     map and back (every frame OK, counts unchanged, mb_vo set out of the
+     map's view and cleared on the way back, K1 once per frame, K2 by
+     search, relocalization included) and deactivation; K2 exact against its twin at the
+     recorded inputs of one motion-model and one local-map search;
+ 16. stereo on the same scene: the row matcher with its sub-pixel SAD
+     refinement at one pair (>= 150 matches, median depth error < 8%, the
+     same matches as on the CPU from the same features, disparities within
+     1e-3 px), then the stereo System with the JAX defaults over 12 pairs:
+     >= 1 keyframe, >= 70% tracked, 0 lost, K1 twice per frame (left and
+     right).
 
-The launch counters are set to 0 before phases 5, 8, 9, 10, 11, 12,
-each family's System run in 13 and phase 14's, and read after each. Every phase logs
+The launch counters are set to 0 before phases 5, 8, 9, 9b, 10, 11, 12,
+each family's System run in 13, phase 14's, phase 15's run and its
+retrace, and phase 16's System run, and read after each. Every phase logs
 its wall time. Prints the card (nvidia-smi
 name, power limit) first, then per-phase lines, one JSON line of kernel
 results (K1 and pack_bits: launches in phase 8, by phase and by family,
@@ -131,6 +158,7 @@ is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -502,6 +530,10 @@ MAX_ATE_M = 0.05
 # closing's global match, Sim3-guided projections and SearchAndFuse
 SEARCHES = ("init", "tracking", "fusion", "reloc", "reloc_projection", "loop_global",
             "loop_projection", "loop_fuse")
+# the staged tracker's searches, labelled apart in the phases that ask for
+# them (RGB-D, stereo, localization mode: frames that leave the fused step);
+# elsewhere they count as "tracking"
+STAGED_SEARCHES = ("motion_model", "reference_kf", "local_map")
 RECORD_FIRST = 4  # calls kept per tracking / relocalization / loop search label
 
 
@@ -520,16 +552,19 @@ class SystemProbe:
     landed (`folds`: at the next event, at the tracker's interrupt, in the
     loop stage, on the watcher thread, at the final drain). With
     sync=False neither frames nor events wait for the device, so the
-    deferred solves overlap what follows them."""
+    deferred solves overlap what follows them. With staged=True the staged
+    tracker's searches are labelled by stage (STAGED_SEARCHES; inside a
+    relocalization they stay "reloc_projection")."""
 
     def __init__(self, torch, system, device, record=None, sync_sites=None, sync=True,
-                 record_event=RECORDED_EVENT):
+                 record_event=RECORDED_EVENT, staged=False):
         from anyfeature_vslam_tpu_torch.frontend import cuda_fast
         from anyfeature_vslam_tpu_torch.ops import cuda_match
 
         self.torch, self.system, self.device = torch, system, torch.device(device)
         self.record, self.sync_sites, self.sync = record, sync_sites, sync
         self.record_event = record_event
+        self.staged = staged
         self.counters = (cuda_fast.fast_nms, cuda_match.best_two, cuda_match.pack_bits)
         self._tls = threading.local()
         self._lock = threading.Lock()
@@ -566,8 +601,11 @@ class SystemProbe:
         def wrap(fn):
             def inner(*a, **kw):
                 prev = self.label
-                # SearchAndFuse's projections stay SearchAndFuse's
-                self.label = prev if (prev, tag) == ("loop_fuse", "loop_projection") else tag
+                # SearchAndFuse's projections stay SearchAndFuse's, and a
+                # relocalization's local-map search its own
+                keep = (prev, tag) == ("loop_fuse", "loop_projection") or (
+                    prev == "reloc_projection" and tag in STAGED_SEARCHES)
+                self.label = prev if keep else tag
                 try:
                     return fn(*a, **kw)
                 finally:
@@ -664,6 +702,10 @@ class SystemProbe:
                 (LoopCloser, "_project_loop_points", "loop_projection"),
                 (LoopCloser, "_search_and_fuse", "loop_fuse")):
             self._patch(owner, name, self._labelled(tag))
+        if self.staged:
+            for name, tag in zip(("_track_motion_model", "_track_reference_kf",
+                                  "_track_local_map"), STAGED_SEARCHES):
+                self._patch(Tracker, name, self._labelled(tag))
         self._patch(matching, "guided_best_two", self._recorder)
         self._patch(frame_ops, "match_descriptors_global", self._reference)
         self._patch(LocalMapper, "process_keyframe", self._fold_site("next event"))
@@ -690,15 +732,22 @@ class SystemProbe:
         self._patched = []
         return False
 
-    def frame(self, img8, ts, image_path=None):
+    def frame(self, img8, ts, image_path=None, depth=None, right=None):
         """Track one frame; its row: ms, state, launches, events, map size.
-        image_path: where a precomputed family's features are found."""
+        image_path: where a precomputed family's features are found;
+        depth: an RGB-D frame's depth map; right: a stereo frame's right
+        image."""
         c = self.counters
         n0 = [x.launches for x in c]
         ev0 = len(self.events)
         s0 = self._syncs()
         t0 = time.perf_counter()
-        state = self.system.track_monocular(img8, ts, image_path=image_path)
+        if depth is not None:
+            state = self.system.track_rgbd(img8, depth, ts)
+        elif right is not None:
+            state = self.system.track_stereo(img8, right, ts)
+        else:
+            state = self.system.track_monocular(img8, ts, image_path=image_path)
         self._sync()
         m = self.system.map
         return dict(ms=(time.perf_counter() - t0) * 1e3, state=state.name,
@@ -720,8 +769,6 @@ def system_run(torch, width, height, n_frames, device, record=None, sync_sites=N
     many first frames only (those rows have "sync_counted"). Returns
     (system, per-frame rows, per-event rows, scene, K2 launches by search,
     the probe)."""
-    import contextlib
-
     from anyfeature_vslam_tpu_torch.system import System
     from torch_slice_scene import SliceScene
 
@@ -1014,7 +1061,7 @@ def reloc_phase(torch, device, system, sc, align):
         fail.append(f"{k2_by.get('reloc', 0)} candidate searches for {n_cand_searches} candidates")
     if fail:
         raise AssertionError(f"the relocalization phase failed: {fail}")
-    return launches, k2_by, recorded
+    return launches, k2_by, recorded, fid
 
 
 # The JAX System with async_mapping=False closes this loop on the CPU at
@@ -1343,8 +1390,6 @@ def threaded_phase(torch, device, frames):
     drain, and the event stages are those of the events issued then.
     Counts set to 0 just before, read just after. Returns (launches K1, K2,
     pack; K2 by search)."""
-    import contextlib
-
     from torch.profiler import ProfilerActivity, profile
 
     from anyfeature_vslam_tpu_torch import perfcount
@@ -1798,6 +1843,402 @@ def r2d2_phase(torch, device):
         return family_phase(torch, device, "r2d2_128", [sc.image()] * N_FAMILY_FRAMES,
                             sc=sc, image_paths=paths)
 
+N_RETRACE = 8  # frames retraced backwards in localization mode
+
+
+def _localization_gates(tag, system, rows, counts_before):
+    """The localization retrace's gates: every frame OK and tracked in
+    localization mode, the map's keyframe and point counts unchanged."""
+    fail = []
+    bad = [i for i, r in enumerate(rows) if r["state"] != "OK"]
+    if bad:
+        fail.append(f"frames {bad} not OK")
+    if not system.tracker.only_tracking:
+        fail.append("only_tracking not set")
+    counts = (system.map.n_keyframes(), system.map.n_points())
+    if counts != counts_before:
+        fail.append(f"keyframes, points {counts_before} -> {counts}")
+    if fail:
+        raise AssertionError(f"[{tag}] localization mode failed: {fail}")
+
+
+def _deactivate(tag, probe, system, img, ts, **frame_kw):
+    """Deactivate localization mode; only_tracking must clear at the next
+    frame."""
+    system.deactivate_localization_mode()
+    probe.frame(img, ts, **frame_kw)
+    if system.tracker.only_tracking:
+        raise AssertionError(f"[{tag}] only_tracking still set after deactivation")
+
+
+def mono_localization_phase(torch, device, system, sc, fid):
+    """Phase 9b: localization mode on phase 8's System, relocalized at the
+    view of frame `fid` in phase 9: the views of frames fid, fid - 1, ...
+    retraced backwards (N_RETRACE frames, the staged path, no keyframe);
+    every frame OK, the keyframe and point counts unchanged, K1 once per
+    frame; then deactivated, only_tracking clears at the next frame.
+    Counts set to 0 just before the retrace, read just after. Returns
+    (launches K1, K2, pack; K2 by search)."""
+    counters = _counters()
+    views = [fid - j for j in range(N_RETRACE)]
+    imgs = [sc.render(f)[0] for f in views]
+    counts_before = (system.map.n_keyframes(), system.map.n_points())
+    system.activate_localization_mode()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    rows = []
+    ts = (N_SYSTEM_FRAMES + 10) / 30.0
+    with SystemProbe(torch, system, device, staged=True) as probe:
+        for img in imgs:
+            rows.append(probe.frame(img, ts))
+            ts += 1 / 30.0
+        launches = tuple(c.launches for c in counters)
+        k2_by = dict(probe.k2_by_label)
+        for f, r in zip(views, rows):
+            log(f"[mono localization] view of frame {f}: {r['state']} inliers {r['inliers']} "
+                f"{r['ms']:.1f} ms, launches K1 {r['k1']} K2 {r['k2']}, mb_vo "
+                f"{system.tracker.mb_vo}")
+        _localization_gates("mono localization", system, rows, counts_before)
+        _deactivate("mono localization", probe, system, imgs[-1], ts)
+    log(f"[mono localization] {len(rows)} frames retraced, keyframes, points "
+        f"{counts_before} unchanged; median {statistics.median(r['ms'] for r in rows):.1f} ms "
+        f"per frame; launches K1 {launches[0]}, K2 {launches[1]} (by search "
+        f"{json.dumps(k2_by)}), pack {launches[2]}")
+    if [r["k1"] for r in rows] != [1] * len(rows):
+        raise AssertionError("[mono localization] K1 not launched once per frame")
+    return launches, k2_by
+
+
+# Phases 15 and 16: tests/test_rgbd_stereo.py's scene (its texture,
+# platforms, poses and 0.1 m baseline) at 640x480, its intrinsics scaled
+# from 320x240 (fx 260 -> 520, the principal point at the centre;
+# tests/torch_plane_scene.py)
+N_RGBD_FRAMES = 40
+N_STEREO_FRAMES = 12
+N_RGBD_SYNC_FRAMES = 8     # host syncs counted over frames 1-8
+# test_rgbd_stereo.py's gates
+MAX_SCALE_ERR = 0.12       # the keyframes' metric displacement against the truth
+MIN_KF_MATCHES = 100       # matches of every keyframe
+MAX_INIT_DEPTH_ERR_M = 0.1  # the instant map's median depth against the rendered one
+MIN_STEREO_MATCHES = 150
+MAX_STEREO_DEPTH_ERR = 0.08  # median relative depth error of the stereo matches
+MIN_STEREO_TRACKED = 0.7
+# the card's sub-pixel disparities against the CPU's: the 11x11 SAD sums
+# are float32 sums in another order
+STEREO_DISP_ATOL = 1e-3
+
+
+def plane_camera():
+    """The plane scene's camera at W x H and its bf (baseline x fx)."""
+    from torch_plane_scene import BASELINE, plane_intrinsics
+
+    fx, cx, cy = plane_intrinsics(W, H)
+    return SimpleNamespace(fx=fx, fy=fx, cx=cx, cy=cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
+                           width=W, height=H), fx * BASELINE
+
+
+def rgbd_poses():
+    """test_rgbd_stereo.py's poses: the camera 2 m above the plane, moving
+    along x."""
+    from torch_plane_scene import line_traj
+
+    return line_traj(N_RGBD_FRAMES, x1=3.2)
+
+
+def leg_poses():
+    """tests/test_torch_rgbd.py's leg after the localization retrace, from
+    the retrace's last pose out of the map's view and back."""
+    from torch_plane_scene import out_and_back
+
+    return out_and_back(float(_centre64(rgbd_poses()[N_RGBD_FRAMES - N_RETRACE])[0]))
+
+
+def _render_plane_chunk(kind, idx):
+    """Frames idx of the RGB-D run or its localization leg ((image,
+    depth)), or of the stereo run ((left, right, left depth)), float32 as
+    the scene renders them."""
+    from torch_plane_scene import line_traj, plane_scene, right_view
+
+    sc = plane_scene(W, H)
+    if kind in ("rgbd", "leg"):
+        poses = rgbd_poses() if kind == "rgbd" else leg_poses()
+        return [(kind, i, sc.render_with_depth(poses[i])) for i in idx]
+    out = []
+    for i in idx:
+        pose = line_traj(N_STEREO_FRAMES)[i]
+        img, depth = sc.render_with_depth(pose)
+        out.append((kind, i, (img, right_view(sc, pose), depth)))
+    return out
+
+
+def render_plane_frames():
+    """Phase 15's RGB-D frames and localization leg, and phase 16's stereo
+    pairs, rendered on the host's cores (one spawned process per core, at
+    most 8)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    n_proc = min(8, os.cpu_count() or 1)
+    counts = {"rgbd": N_RGBD_FRAMES, "leg": len(leg_poses()), "stereo": N_STEREO_FRAMES}
+    jobs = [(kind, list(range(n))[k::n_proc]) for kind, n in counts.items()
+            for k in range(n_proc)]
+    jobs = [j for j in jobs if j[1]]
+    with ProcessPoolExecutor(n_proc, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = pool.map(_render_plane_chunk, *zip(*jobs))
+        got = {(kind, i): v for part in parts for kind, i, v in part}
+    return tuple([got[kind, i] for i in range(n)] for kind, n in counts.items())
+
+
+def _centre64(t):
+    import numpy as np
+
+    t = np.asarray(t, np.float64)
+    return -t[:3, :3].T @ t[:3, 3]
+
+
+def rgbd_phase(torch, device, frames, leg):
+    """Phase 15: the RGB-D System (sensor="rgbd", bf = 0.1 m x fx, the JAX
+    System's defaults) over the N_RGBD_FRAMES frames of tests/
+    test_rgbd_stereo.py's run at 640x480, then localization mode. Gates:
+    the instant map at frame 0 with its median point depth within
+    MAX_INIT_DEPTH_ERR_M of the rendered median; 0 resets, 0 lost, >=
+    N_RGBD_FRAMES - 1 tracked; the keyframes' metric displacement within
+    MAX_SCALE_ERR of the truth, no alignment; every keyframe with more
+    than MIN_KF_MATCHES matches; K1 once per frame; K2 from the staged
+    searches (motion model, reference keyframe, local map) and fusion.
+    Then localization mode: the last N_RETRACE frames retraced backwards,
+    then `leg` (``leg_poses``: beyond the map, where the tracker rides
+    its depth points in mb_vo and tries relocalization at every frame,
+    and back, where the motion model's map matches or a relocalization
+    end mb_vo); every frame OK, counts unchanged, mb_vo set on the way out
+    and cleared by the end, K1 once per frame, K2 by search (reloc
+    included), deactivation. ms per frame with
+    and without an event, host syncs per frame over frames 1-8 (left out
+    of the times). K2 held exact against its twin at the recorded inputs
+    of one motion-model and one local-map search. Counts set to 0 just
+    before each run, read just after. Returns (launches K1, K2, pack; K2
+    by search; the same of the retrace; K2 rows by search)."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.system import System
+
+    counters = _counters()
+    recorded, sync_sites = {}, {}
+    cam, bf = plane_camera()
+    system = System(cam, feature="orb32", n_features=N_FEATURES, sensor="rgbd", bf=bf,
+                    device=device)
+    if not (system.async_mapping and system.loop_closer is not None):
+        raise AssertionError("[rgbd] the System runs without the JAX System's defaults")
+    poses = rgbd_poses()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    rows = []
+    t0 = time.perf_counter()
+    with SystemProbe(torch, system, device, recorded, sync_sites, staged=True) as probe:
+        for i, (img, depth) in enumerate(frames):
+            counted = 1 <= i <= N_RGBD_SYNC_FRAMES
+            with sync_counter(torch, sync_sites) if counted else contextlib.nullcontext():
+                rows.append(dict(probe.frame(img, i / 30.0, depth=depth), sync_counted=counted))
+            if i == 0:
+                m = system.map
+                kf0 = m.keyframe_ids()
+                ids = m.kf_matches[kf0[0]][m.kf_matches[kf0[0]] >= 0] if len(kf0) else []
+                init_depth = float(np.median(m.pt_pos[ids][:, 2])) if len(ids) else float("nan")
+                rendered = float(np.median(depth[depth > 0]))
+        wall = time.perf_counter() - t0
+        launches = tuple(c.launches for c in counters)
+        k2_by = dict(probe.k2_by_label)
+        events = list(probe.events)
+        stats = dict(system.tracker.stats)
+        m = system.map
+        kfs = m.keyframe_ids()
+        kf_frames = [int(m.kf_frame_id[k]) for k in kfs]
+        kf_matched = [int((m.kf_matches[k] >= 0).sum()) for k in kfs]
+        est = np.stack([_centre64(m.kf_pose[k]) for k in kfs])
+        gt = np.stack([_centre64(poses[f]) for f in kf_frames])
+        d_est, d_gt = float(np.linalg.norm(est[-1] - est[0])), float(
+            np.linalg.norm(gt[-1] - gt[0]))
+        for i, r in enumerate(rows):
+            log(f"[rgbd] frame {i}: {r['state']} kfs {r['kfs']} pts {r['pts']} inliers "
+                f"{r['inliers']} {r['ms']:.1f} ms, events {r['events']}, launches K1 {r['k1']} "
+                f"K2 {r['k2']} pack {r['pack']}, host syncs {r['syncs']}")
+        plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
+        log(f"[rgbd] {len(rows)} frames {W}x{H} orb32 {N_FEATURES} features, bf {bf:g} "
+            f"in {wall:.1f} s; init at frame 0: {len(ids)} points, median depth "
+            f"{init_depth:.4f} m (rendered {rendered:.4f} m); at the end {len(kfs)} keyframes "
+            f"(frames {kf_frames}, matches {kf_matched}), {m.n_points()} points; tracked "
+            f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}; "
+            f"keyframe displacement {d_est:.4f} m against {d_gt:.4f} m "
+            f"({100 * abs(d_est - d_gt) / d_gt:.2f}%)")
+        log(f"[rgbd] median ms per frame after init+1: without a keyframe event {plain_ms:.1f} "
+            f"({n_plain} frames), with one {ev_ms:.1f} ({n_ev} frames); {len(events)} events; "
+            f"host syncs per frame over frames 1-{N_RGBD_SYNC_FRAMES} "
+            f"{[r['syncs'] for r in rows if r['sync_counted']]}")
+        for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"[rgbd syncs]   {n:5d}x  {site}")
+        log(f"[rgbd] launches: K1 {launches[0]}, K2 {launches[1]} (by search "
+            f"{json.dumps(k2_by)}), pack {launches[2]}")
+        fail = []
+        if not abs(init_depth - rendered) < MAX_INIT_DEPTH_ERR_M:
+            fail.append(f"instant map's median depth {init_depth:.4f} m, rendered {rendered:.4f}")
+        if stats["resets"] or stats["lost_frames"] or \
+                stats["tracked_frames"] < N_RGBD_FRAMES - 1:
+            fail.append(f"stats {stats}")
+        if len(kfs) < 2 or not abs(d_est - d_gt) / d_gt < MAX_SCALE_ERR:
+            fail.append(f"{len(kfs)} keyframes, displacement {d_est:.4f} m of {d_gt:.4f} m")
+        if min(kf_matched) <= MIN_KF_MATCHES:
+            fail.append(f"a keyframe with {min(kf_matched)} matches")
+        if [r["k1"] for r in rows] != [1] * len(rows):
+            fail.append("K1 not launched once per frame")
+        if not (all(k2_by.get(k, 0) > 0 for k in ("motion_model", "local_map", "fusion"))
+                and sum(k2_by.values()) == launches[1]):
+            fail.append("K2 not launched by the motion-model, local-map and fusion searches")
+        if fail:
+            raise AssertionError(f"[rgbd] the RGB-D phase failed: {fail}")
+
+        # localization mode: the last frames retraced backwards
+        counts_before = (m.n_keyframes(), m.n_points())
+        reloc0 = stats["relocalizations"]
+        system.activate_localization_mode()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        n_by0 = dict(probe.k2_by_label)
+        loc_rows, mb_vo = [], []
+        ts = 2.0
+        for what, (img, depth) in ([("retrace", f) for f in reversed(frames[-N_RETRACE:])]
+                                   + [("leg", f) for f in leg]):
+            loc_rows.append(dict(probe.frame(img, ts, depth=depth), what=what))
+            mb_vo.append(system.tracker.mb_vo)
+            ts += 1 / 30.0
+        loc_launches = tuple(c.launches for c in counters)
+        loc_by = {k: v - n_by0.get(k, 0) for k, v in probe.k2_by_label.items()
+                  if v - n_by0.get(k, 0)}
+        n_reloc = system.tracker.stats["relocalizations"] - reloc0
+        for j, r in enumerate(loc_rows):
+            log(f"[rgbd localization] {r['what']} {j}: {r['state']} inliers {r['inliers']} "
+                f"{r['ms']:.1f} ms, launches K1 {r['k1']} K2 {r['k2']}, mb_vo {mb_vo[j]}")
+        vo_ms = [r["ms"] for r, v in zip(loc_rows, mb_vo) if v]
+        log(f"[rgbd localization] {N_RETRACE} frames retraced, {len(leg)} out of the map and "
+            f"back; median {statistics.median(r['ms'] for r in loc_rows):.1f} ms per frame, "
+            f"{statistics.median(vo_ms) if vo_ms else float('nan'):.1f} in mb_vo "
+            f"({len(vo_ms)} frames); relocalizations {n_reloc}; launches K1 "
+            f"{loc_launches[0]}, K2 {loc_launches[1]} (by search {json.dumps(loc_by)}), pack "
+            f"{loc_launches[2]}")
+        _localization_gates("rgbd", system, loc_rows, counts_before)
+        fail = []
+        if any(mb_vo[:N_RETRACE]) or not any(mb_vo) or mb_vo[-1]:
+            fail.append(f"mb_vo {mb_vo}")
+        if [r["k1"] for r in loc_rows] != [1] * len(loc_rows):
+            fail.append("K1 not launched once per frame")
+        if fail:
+            raise AssertionError(f"[rgbd localization] failed: {fail}")
+        # the leg ends at rest: its last view again
+        _deactivate("rgbd", probe, system, leg[-1][0], ts, depth=leg[-1][1])
+    del system
+    k2_rows = {}
+    for label in ("motion_model", "local_map"):
+        if label not in recorded:
+            raise AssertionError(f"[rgbd] no {label} search was recorded")
+        a, kw = max(recorded[label], key=lambda c: int((c[0][4] >= 0).sum()))
+        k2_rows[label] = measure_k2(
+            torch, a, kw, f"rgbd {label} search ({int((a[4] >= 0).sum())} active queries)")
+    return (launches, k2_by), (loc_launches, loc_by), k2_rows
+
+
+def stereo_phase(torch, device, pairs):
+    """Phase 16: stereo. The row matcher with its sub-pixel refinement
+    (frame_ops.match_stereo_rows_subpix) at pair 0, on the features the
+    stereo tracker extracts (the left image's uint8 copy, the right image
+    as given): >= MIN_STEREO_MATCHES matches, median depth error under
+    MAX_STEREO_DEPTH_ERR against the rendered depth, and the same matches
+    on the CPU from the same features (indices and validity equal,
+    disparities within STEREO_DISP_ATOL px); then the stereo System (the
+    JAX defaults) over N_STEREO_FRAMES pairs: >= 1 keyframe, >=
+    MIN_STEREO_TRACKED of the frames tracked, 0 lost, 0 resets, K1 twice
+    per frame (left and right). Counts set to 0 just before the System
+    run, read just after. Returns (launches K1, K2, pack; K2 by search)."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.slam import frame_ops
+    from anyfeature_vslam_tpu_torch.system import System
+
+    counters = _counters()
+    cam, bf = plane_camera()
+    system = System(cam, feature="orb32", n_features=N_FEATURES, sensor="stereo", bf=bf,
+                    device=device)
+    tracker = system.tracker
+    img_l, img_r, depth = pairs[0]
+    fl = tracker._extract(img_l, init=False)
+    il, ir = (torch.from_numpy(x).to(device) for x in (img_l, img_r))
+    fr = tracker.extractor(ir)
+    keys = ("desc_bits", "xy", "size", "valid")
+    args = (*(fl.dev(k) for k in keys), *(fr[k] for k in keys), tracker.cfg.match_th, 0.0,
+            cam.fx)
+    res = frame_ops.match_stereo_rows_subpix(il, ir, *args)
+    cpu = frame_ops.match_stereo_rows_subpix(il.cpu(), ir.cpu(),
+                                             *(a.cpu() if torch.is_tensor(a) else a
+                                               for a in args))
+    res = {k: v.cpu().numpy() for k, v in res.items()}
+    cpu = {k: v.numpy() for k, v in cpu.items()}
+    ms = time_ms(torch, lambda: frame_ops.match_stereo_rows_subpix(il, ir, *args), reps=10)
+    ok = res["valid"] & (res["disparity"] > 0)
+    xy = fl["xy"][ok]
+    z_gt = depth[np.clip(np.rint(xy[:, 1]).astype(int), 0, H - 1),
+                 np.clip(np.rint(xy[:, 0]).astype(int), 0, W - 1)]
+    rel = float(np.median(np.abs(bf / res["disparity"][ok] - z_gt) / z_gt)) \
+        if ok.any() else float("nan")
+    same_valid = bool(np.array_equal(res["valid"], cpu["valid"]))
+    same_idx = bool(np.array_equal(res["idx"][res["valid"]], cpu["idx"][cpu["valid"]])) \
+        if same_valid else False
+    disp_err = float(np.abs(res["disparity"] - cpu["disparity"]).max())
+    log(f"[stereo] row matcher at pair 0: {int(ok.sum())} matches of "
+        f"{int(fl['valid'].sum())} left / {int(fr['valid'].sum())} right keypoints; median "
+        f"depth error {100 * rel:.3f}%; card vs CPU: validity equal {same_valid}, indices "
+        f"equal {same_idx}, max disparity difference {disp_err:.3g} px; eager {ms:.3f} ms")
+    fail = []
+    if ok.sum() < MIN_STEREO_MATCHES or not rel < MAX_STEREO_DEPTH_ERR:
+        fail.append(f"{int(ok.sum())} matches, median depth error {rel:.4f}")
+    if not (same_valid and same_idx and disp_err <= STEREO_DISP_ATOL):
+        fail.append("the card's stereo matches differ from the CPU's")
+    if fail:
+        raise AssertionError(f"[stereo] the row matcher failed: {fail}")
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    rows = []
+    t0 = time.perf_counter()
+    with SystemProbe(torch, system, device, staged=True) as probe:
+        for i, (left, right, _) in enumerate(pairs):
+            rows.append(probe.frame(left, i / 30.0, right=right))
+        launches = tuple(c.launches for c in counters)
+        k2_by = dict(probe.k2_by_label)
+    wall = time.perf_counter() - t0
+    stats = system.tracker.stats
+    for i, r in enumerate(rows):
+        log(f"[stereo] frame {i}: {r['state']} kfs {r['kfs']} pts {r['pts']} inliers "
+            f"{r['inliers']} {r['ms']:.1f} ms, events {r['events']}, launches K1 {r['k1']} "
+            f"K2 {r['k2']} pack {r['pack']}")
+    plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
+    log(f"[stereo] {len(rows)} pairs in {wall:.1f} s; {system.map.n_keyframes()} keyframes, "
+        f"{system.map.n_points()} points; tracked {stats['tracked_frames']}, lost "
+        f"{stats['lost_frames']}, resets {stats['resets']}; median ms per frame after init+1: "
+        f"without an event {plain_ms:.1f} ({n_plain}), with one {ev_ms:.1f} ({n_ev}); "
+        f"launches K1 {launches[0]}, K2 {launches[1]} (by search {json.dumps(k2_by)}), pack "
+        f"{launches[2]}")
+    fail = []
+    if system.map.n_keyframes() < 1 or stats["lost_frames"] or stats["resets"] or \
+            stats["tracked_frames"] < MIN_STEREO_TRACKED * N_STEREO_FRAMES:
+        fail.append(f"{system.map.n_keyframes()} keyframes, stats {stats}")
+    if [r["k1"] for r in rows] != [2] * len(rows):
+        fail.append(f"K1 launches per frame {[r['k1'] for r in rows]}, not 2")
+    if fail:
+        raise AssertionError(f"[stereo] the stereo System failed: {fail}")
+    return launches, k2_by
+
 
 def main() -> int:
     import torch
@@ -2187,9 +2628,17 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 9 begins")
     # ---- 9. relocalization of phase 8's System
     t_phase = time.perf_counter()
-    reloc_launches, reloc_by, reloc_rec = reloc_phase(torch, device, system, ssc, align)
-    del system
+    reloc_launches, reloc_by, reloc_rec, reloc_fid = reloc_phase(torch, device, system, ssc,
+                                                                 align)
     log(f"[phase 9] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 9b begins")
+    # ---- 9b. localization mode on phase 8's System, retracing backwards
+    t_phase = time.perf_counter()
+    monoloc_launches, monoloc_by = mono_localization_phase(torch, device, system, ssc,
+                                                           reloc_fid)
+    del system
+    log(f"[phase 9b] {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 10 begins")
     # ---- 10. the live loop closure: two sessions merged by a Sim3 closure
@@ -2233,8 +2682,6 @@ def main() -> int:
     k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_new.values()])
     log(f"[K2 real] relocalization and loop searches measured in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    by_phase = (k2_by, reloc_by, loop_by, async_by, threaded_by)
-    by_search = {k: sum(b.get(k, 0) for b in by_phase) for k in SEARCHES}
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 13 begins")
     # ---- 13. the other families: K1 on the FAST families' pyramids (none on
@@ -2266,6 +2713,24 @@ def main() -> int:
     k2_err = max([k2_err] + [k["max_abs_err"] for r in fam.values()
                              for k in r["k2_rows"].values()])
 
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 15 begins")
+    # ---- 15. RGB-D: the instant map from depth, the staged tracker,
+    # depth-minted keyframes; then localization mode
+    t_phase = time.perf_counter()
+    rgbd_frames, leg_frames, stereo_pairs = render_plane_frames()
+    log(f"[rgbd] rendered {len(rgbd_frames)} + {len(leg_frames)} RGB-D frames and "
+        f"{len(stereo_pairs)} stereo pairs {W}x{H} in {time.perf_counter() - t_phase:.1f} s")
+    (rgbd_launches, rgbd_by), (rgbdloc_launches, rgbdloc_by), k2_rgbd = rgbd_phase(
+        torch, device, rgbd_frames, leg_frames)
+    k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_rgbd.values()])
+    log(f"[phase 15] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 16 begins")
+    # ---- 16. stereo: the row matcher, two extractions per frame
+    t_phase = time.perf_counter()
+    stereo_launches, stereo_by = stereo_phase(torch, device, stereo_pairs)
+    log(f"[phase 16] {time.perf_counter() - t_phase:.1f} s")
+
     # per tracked frame: K1 over the 8 levels; pack_bits at frame 13's
     # keypoints; K2 once per search: the tracked frame's searches (frame
     # 13's, summed: events and bounds; phase 5b's frames: device time), the
@@ -2277,7 +2742,11 @@ def main() -> int:
     k2_bound_by = max(k2_real[:frame_searches], key=lambda r: r["bound_ms"])["bound_by"]
     k2_src = dict(route="cuda", source="anyfeature_vslam_tpu_torch/csrc/best_two.cu",
                   replaces="anyfeature_vslam_tpu/ops/pallas_match.py:179", library_ms=None)
-    phases = ("system", "reloc", "loop", "async", "threaded")
+    phases = ("system", "reloc", "mono_localization", "loop", "async", "threaded", "rgbd",
+              "rgbd_localization", "stereo")
+    by_phase = (k2_by, reloc_by, monoloc_by, loop_by, async_by, threaded_by, rgbd_by, rgbdloc_by,
+                stereo_by)
+    by_search = {k: sum(b.get(k, 0) for b in by_phase) for k in SEARCHES + STAGED_SEARCHES}
     k2_entries = [dict(
         name="best_two[tracking]", search="tracking", **k2_src, launches=by_search["tracking"],
         launches_by_phase=dict(zip(phases, (b.get("tracking", 0) for b in by_phase))),
@@ -2287,9 +2756,10 @@ def main() -> int:
         device_ms=dev_frames["best_two_bits_kernel"][1] / N_PROFILED,
         plain_ms=frame_k2["plain_ms"], bound_ms=frame_k2["bound_ms"], bound_by=k2_bound_by,
         at=f"frame {FIRST_TRACKED}'s {frame_searches} searches, summed")]
-    for label, r in list(k2_sys.items()) + list(k2_new.items()):
+    for label, r in list(k2_sys.items()) + list(k2_new.items()) + list(k2_rgbd.items()):
         k2_entries.append(dict(
-            name=f"best_two[{label}]", search=label, **k2_src, launches=by_search[label],
+            name=f"best_two[{'staged ' if label in STAGED_SEARCHES else ''}{label}]",
+            search=label, **k2_src, launches=by_search[label],
             launches_by_phase=dict(zip(phases, (b.get(label, 0) for b in by_phase))),
             max_abs_err=r["max_abs_err"], ms=r["eager_ms"], eager_ms=r["eager_ms"],
             graph_ms=r["graph_ms"], device_ms=r["device_ms"], pack_device_ms=r["pack_device_ms"],
@@ -2305,7 +2775,9 @@ def main() -> int:
                 bound_ms=k["bound_ms"], bound_by=k["bound_by"], at=k["label"], nq=k["nq"],
                 nc=k["nc"], passes=k["passes"]))
     launches_by_phase = dict(zip(phases, ((sys_k1, sys_k2, sys_pack), reloc_launches,
-                                          loop_launches, async_launches, threaded_launches)))
+                                          monoloc_launches, loop_launches, async_launches,
+                                          threaded_launches, rgbd_launches, rgbdloc_launches,
+                                          stereo_launches)))
     log(json.dumps({"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/fast_nms.cu",

@@ -163,8 +163,9 @@ def test_system_defaults_and_unported_options():
     thread, pipeline depth 0 (2 with the worker), the shipped orb32
     vocabulary, place recognition (the database the tracker relocalizes
     with) and the loop closer; threaded mapping and a pipeline depth are
-    accepted; other sensors, a device mesh, DBoW2 text vocabularies and
-    localization mode still raise, naming their ROADMAP item."""
+    accepted; a depth sensor needs bf and takes the JAX default th_depth;
+    localization mode is set and cleared at the next frame; a device mesh
+    and DBoW2 text vocabularies still raise, naming their ROADMAP item."""
     import inspect
 
     params = inspect.signature(System).parameters
@@ -191,10 +192,20 @@ def test_system_defaults_and_unported_options():
         threaded.shutdown(timeout=30.0)
     assert threaded._worker is None
     assert System(cam, device="cpu", pipeline_depth=3).tracker.pipeline_depth == 3
-    for kw, item in ((dict(sensor="rgbd", bf=40.0), "10"),
-                     (dict(vocabulary_path="ORBvoc.txt"), "14"), (dict(use_mesh=True), "12")):
+    for kw, item in ((dict(vocabulary_path="ORBvoc.txt"), "14"), (dict(use_mesh=True), "12")):
         with pytest.raises(NotImplementedError, match=f"queue item {item}"):
             System(cam, device="cpu", **kw)
-    for mode in (system.activate_localization_mode, system.deactivate_localization_mode):
-        with pytest.raises(NotImplementedError, match="queue item 10"):
-            mode()
+    with pytest.raises(ValueError, match="bf"):
+        System(cam, device="cpu", sensor="rgbd")
+    rgbd = System(cam, device="cpu", sensor="rgbd", bf=40.0)
+    assert rgbd.tracker.cfg.th_depth == rgbd.local_mapper.th_depth == 35.0 * 40.0 / float(cam.fx)
+    assert rgbd.tracker.cfg.sensor == rgbd.local_mapper.sensor == "rgbd"
+    img = sc.render(0)[0]
+    with pytest.raises(RuntimeError, match="sensor is rgbd"):
+        rgbd.track_monocular(img, 0.0)
+    for mode, want in ((system.activate_localization_mode, True),
+                       (system.deactivate_localization_mode, False)):
+        mode()
+        assert system.tracker.only_tracking is not want  # set at the next frame
+        system.track_monocular(img, 0.0)
+        assert system.tracker.only_tracking is want
