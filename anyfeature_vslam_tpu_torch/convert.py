@@ -8,7 +8,9 @@ crosses over is the camera and the fused step's device state, laid out as
 package (anyfeature_vslam_tpu/slam/tracking.py). A whole map crosses as a
 checkpoint file: the port's ``slam.map_state.SlamMap.load`` reads what the
 JAX package's ``SlamMap.save`` writes (the same format, both ways), and
-``System.load_checkpoint`` loads one into a running System.
+``System.load_checkpoint`` loads one into a running System. A DBoW2
+vocabulary crosses as its text file (either package's ``save_dbow2_text``
+output loads in the other) or, parsed, through ``dbow2_from_numpy``.
 """
 
 from __future__ import annotations
@@ -79,3 +81,17 @@ def track_state_from_numpy(carry, ref, block, device):
     state.update({k: tensor_from_numpy(ref[k], device) for k in REF_KEYS})
     state.update({k: tensor_from_numpy(block[k], device) for k in BLOCK_KEYS})
     return state
+
+
+def dbow2_from_numpy(vocab):
+    """A DBoW2 vocabulary from any object with its numpy fields (branching,
+    depth, children, node_desc, leaf_word, word_weight, fold; e.g. the JAX
+    package's ``dbow2_io.Dbow2Vocabulary``) as the port's
+    ``Dbow2Vocabulary``."""
+    from .place_recognition.dbow2_io import Dbow2Vocabulary
+
+    return Dbow2Vocabulary(
+        branching=int(vocab.branching), depth=int(vocab.depth),
+        children=np.asarray(vocab.children, np.int32), node_desc=np.asarray(vocab.node_desc),
+        leaf_word=np.asarray(vocab.leaf_word, np.int32),
+        word_weight=np.asarray(vocab.word_weight, np.float32), fold=int(vocab.fold))

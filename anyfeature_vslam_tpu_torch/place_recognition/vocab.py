@@ -13,8 +13,9 @@ is uploaded once per device and kept there (``Vocabulary.centroids_on``).
 
 Training (``train_vocabulary``, ``_kmeans``, ``_dist``) is host numpy,
 copied from the JAX package so that the same seed gives the same tree.
-DBoW2 text vocabularies (``.txt``, the JAX package's dbow2_io.py) are not
-ported: ROADMAP.md queue item 14.
+DBoW2 text vocabularies (``.txt``, the reference's ``ORBvoc.txt`` format)
+load as a ``dbow2_io.Dbow2Vocabulary``; ``transform_words`` and
+``bow_vector`` take either type.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from . import dbow2_io
 
 
 @dataclass
@@ -53,9 +56,8 @@ class Vocabulary:
     @staticmethod
     def load(path: str):
         if path.endswith(".txt"):
-            raise NotImplementedError(
-                "DBoW2 text vocabularies are not ported to the torch package yet: ROADMAP.md "
-                "queue item 14")
+            # a reference DBoW2 text vocabulary (ORBvoc.txt et al.)
+            return dbow2_io.load_dbow2_text(path)
         z = np.load(path)
         depth = int(z["depth"])
         return Vocabulary(branching=int(z["branching"]), depth=depth,
@@ -145,11 +147,15 @@ def train_vocabulary(desc_bits: np.ndarray, branching: int = 32, depth: int = 2,
     return vocab
 
 
-def transform_words(vocab: Vocabulary, desc_bits, valid):
+def transform_words(vocab, desc_bits, valid):
     """(N, D) descriptors and (N,) validity (tensors on one device) -> (N,)
-    int32 word ids, -1 for invalid rows. Each level picks the child with
-    the smallest distance, the first one among equals (``jnp.argmin``'s
-    rule, made explicit: the key distance * branching + child is unique)."""
+    int32 word ids, -1 for invalid rows; a ``Dbow2Vocabulary`` descends
+    its own tree (dbow2_io.transform_words_dbow2). Each level picks the
+    child with the smallest distance, the first one among equals
+    (``jnp.argmin``'s rule, made explicit: the key distance * branching +
+    child is unique)."""
+    if isinstance(vocab, dbow2_io.Dbow2Vocabulary):
+        return dbow2_io.transform_words_dbow2(vocab, desc_bits, valid)
     cents = vocab.centroids_on(desc_bits.device)
     b = vocab.branching
     n = desc_bits.shape[0]
@@ -182,7 +188,7 @@ def bow_from_words(words, idf):
     return v / torch.where(norm > 0, norm, torch.ones_like(norm))
 
 
-def bow_vector(vocab: Vocabulary, desc_bits, valid):
+def bow_vector(vocab, desc_bits, valid):
     """L1-normalized tf-idf histogram (n_words,) float32."""
     words = transform_words(vocab, desc_bits, valid)
     return bow_from_words(words, torch.from_numpy(vocab.idf).to(desc_bits.device))

@@ -81,11 +81,13 @@ class LoopCloser:
     cx, cy, width, height (numbers or 0-d tensors); database: the
     KeyFrameDatabase; kf_dev: optional keyframe -> feature tensors on the
     device with prepared descriptors (``LocalMapper.kf_dev``), else each
-    keyframe's features are uploaded from the map when searched."""
+    keyframe's features are uploaded from the map when searched; mesh: a
+    parallel/sharded_ba.Mesh over which the global BA runs sharded."""
 
     def __init__(self, slam_map, cam, database, match_th: float = 75.0, seed: int = 0,
-                 device="cuda", kf_dev=None, lock=None):
+                 device="cuda", kf_dev=None, lock=None, mesh=None):
         self.map = slam_map
+        self.mesh = mesh
         self.intrinsics = tuple(float(getattr(cam, k)) for k in ("fx", "fy", "cx", "cy"))
         self.width, self.height = int(cam.width), int(cam.height)
         self.db = database
@@ -501,7 +503,7 @@ class LoopCloser:
         defer = self.defer_ba_sink is not None
         res = run_bundle_adjustment(m, self.intrinsics, free, fixed, pt_ids, n_iters_a=5,
                                     n_iters_b=10, device=self.device, defer=defer,
-                                    stream=self.stream)
+                                    stream=self.stream, mesh=self.mesh)
         if defer and res is not None:
             # solve membership by identity: the fold tells keyframes and
             # points created during the solve apart from its members

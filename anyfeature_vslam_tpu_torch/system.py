@@ -26,9 +26,9 @@ defaults are the JAX System's. Three schedules:
   them.
 
 On the card the tracker runs on a stream of its own and the mapping side
-on another (streams.py). Values of parts not yet ported raise
-NotImplementedError naming the ROADMAP.md queue item that ports them;
-``use_mesh`` never builds a mesh.
+on another (streams.py). With a mesh (``use_mesh``, ``_make_mesh``) local
+and global BA run observation-sharded over the ranks of a torch.distributed
+process group (parallel/sharded_ba.py); every rank runs the same System.
 """
 
 from __future__ import annotations
@@ -43,23 +43,20 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import streams
 from .convert import camera_from_numpy
 from .frontend.extractor import (FEATURE_REGISTRY, ExtractorConfig, descriptor_dim,
                                  descriptor_dtype)
-from .io import dataset, trajectory
+from .io import dataset, trajectory, viewer
+from .parallel import sharded_ba
 from .place_recognition.database import KeyFrameDatabase
 from .place_recognition.vocab import Vocabulary, train_vocabulary
 from .slam.local_mapping import LocalMapper
 from .slam.loop_closing import LoopCloser
 from .slam.map_state import SlamMap
 from .slam.tracking import Tracker, TrackingConfig, TrackState, image_uint8
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to the torch package yet: ROADMAP.md "
-                              f"queue item {item}")
 
 
 class _Turns:
@@ -207,8 +204,6 @@ class System:
             # ORB-SLAM2's default: 35 baselines (ThDepth = 35, reference
             # Tracking.cc:1460; mThDepth = bf * ThDepth / fx)
             th_depth = 35.0 * bf / float(camera.fx)
-        if use_mesh is True:
-            _not_ported("bundle adjustment over a device mesh", "12")
         detector, descriptor, n_oct, scale, detect_th, match_th = FEATURE_REGISTRY[feature]
         if feature_settings:
             n_oct = feature_settings.get("n_levels", n_oct)
@@ -219,6 +214,7 @@ class System:
             # reference Tracking.cc:1515-1520: 1000 below 310k px, 2000 above
             n_features = 2000 if camera.width * camera.height > 310000 else 1000
         self.device = torch.device(device)
+        self.mesh = self._make_mesh(use_mesh, self.device)
         self.seed = seed
         self.match_th = match_th
         cam_host = SimpleNamespace(**{k: float(getattr(camera, k)) for k in (
@@ -246,7 +242,7 @@ class System:
         self.local_mapper = LocalMapper(
             self.map, self.tracker.intrinsics, cam_host.width, cam_host.height,
             match_th=match_th, size_tolerance=scale, sensor=sensor, th_depth=th_depth,
-            device=self.device, lock=self.map_lock)
+            device=self.device, lock=self.map_lock, mesh=self.mesh)
         self.tracker.on_new_keyframe = self._on_new_keyframe
         self.tracker.on_keyframe_feats = self.local_mapper.seed_kf_device
         self.tracker.kf_dev = self.local_mapper.kf_dev
@@ -308,6 +304,28 @@ class System:
         if self.vocabulary is not None:
             self._enable_place_recognition()
 
+    @staticmethod
+    def _make_mesh(use_mesh, device):
+        """The process group local and global BA are sharded over
+        (parallel/sharded_ba.py). False: none. "auto": the default group
+        when one is initialized with two or more ranks. True: the default
+        group, or a one-rank group (NCCL on the card, gloo on the CPU) when
+        none is initialized; raises if no group can be made. Every rank
+        runs the same System on the same frames: each sharded solve first
+        checks that the ranks assembled the same problem, and raises if
+        not. shutdown() destroys a group made here."""
+        if use_mesh is False:
+            return None
+        if use_mesh == "auto":
+            if not (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() >= 2):
+                return None
+        elif use_mesh is not True:
+            raise ValueError(f"use_mesh must be True, False or 'auto', not {use_mesh!r}")
+        if not dist.is_available():
+            raise RuntimeError("use_mesh=True needs torch.distributed, which this torch lacks")
+        return sharded_ba.make_mesh(device)
+
     def _enable_place_recognition(self):
         """The keyframe database (relocalization; culled keyframes leave it,
         reference KeyFrame::SetBadFlag -> KeyFrameDatabase::erase) and, when
@@ -321,7 +339,7 @@ class System:
             self.loop_closer = LoopCloser(self.map, self.cam_host, self.database,
                                           match_th=self.match_th, seed=self.seed,
                                           device=self.device, kf_dev=self.local_mapper.kf_dev,
-                                          lock=self.map_lock)
+                                          lock=self.map_lock, mesh=self.mesh)
             self.loop_closer.stream = self._map_stream
             # threaded: the BoW folds one keyframe late, so no loop stage
             # waits on the device
@@ -429,7 +447,7 @@ class System:
         """Reference System::Shutdown (src/System.cc:332-351): retire the
         frames in flight, drain and stop the worker (each wait bounded by
         `timeout` seconds), land the pending fold and BoW, wait for the
-        device."""
+        device, and destroy the process group that the mesh made."""
         with self._turns, streams.use(self._track_stream):
             self.tracker.flush_pipeline()
         if self._worker is not None:
@@ -440,6 +458,8 @@ class System:
         self._drain()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.mesh is not None:
+            self.mesh.close()
 
     def save_checkpoint(self, path: str):
         """The whole map in the JAX package's checkpoint format
@@ -551,9 +571,9 @@ class System:
 
     # ------------------------------------------------------------- output
     def save_outputs(self, out_dir: str, exp_id: str = "exp"):
-        """Keyframe trajectory CSV, frame trajectories (TUM, KITTI) and the
-        statistics YAML, after the frames in flight and the pending folds.
-        The map SVG of the JAX package's viewer is ROADMAP queue item 11."""
+        """Keyframe trajectory CSV, frame trajectories (TUM, KITTI), the
+        statistics YAML and the map SVG (io/viewer.py), after the frames in
+        flight and the pending folds."""
         self._drain()
         os.makedirs(out_dir, exist_ok=True)
         kf_csv = os.path.join(out_dir, f"{exp_id}_KeyFrameTrajectory.csv")
@@ -575,7 +595,20 @@ class System:
             stats["medianLoopClosingTime_s"] = round(float(np.median(self.loop_times)), 4)
         trajectory.save_statistics_yaml(os.path.join(out_dir, f"{exp_id}_statistics.yaml"),
                                         self.map, stats)
+        viewer.render_map_svg(
+            self.map, os.path.join(out_dir, f"{exp_id}_map.svg"),
+            trajectory=viewer.trajectory_centers(self.tracker.trajectory, self.map))
         return kf_csv
+
+    def render_frame(self, img: np.ndarray, path: str | None = None):
+        """Overlay of the last retired frame's keypoints and tracks
+        (reference FrameDrawer::DrawFrame): an (H, W, 3) uint8 array, also
+        written as a PNG to `path` when given; None before any frame."""
+        f = self.tracker.last
+        if f is None:
+            return None
+        return viewer.render_frame_overlay(img, f.feats, f.matches,
+                                           state_text=self.tracker.state.name, path=path)
 
 
 def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None = None,

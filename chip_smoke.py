@@ -139,10 +139,37 @@ relocalization and loop searches.
      1e-3 px), then the stereo System with the JAX defaults over 12 pairs:
      >= 1 keyframe, >= 70% tracked, 0 lost, K1 twice per frame (left and
      right).
+ 17. DBoW2 text vocabularies: the shipped orb32 tree (k 14, L 4, 38,416
+     words) written as DBoW2 text into a temporary folder and loaded; the
+     words of frame 13's descriptors on the card equal the CPU's and the
+     native tree's; a tree of ORBvoc.txt's shape (k 10, L 6, 1,111,111
+     nodes, 32-byte rows) built in memory from a seed, its words for 1000
+     descriptors on the card equal the CPU's (descent ms, device memory
+     held); phase 8's System (synchronous, 48 frames) on the .txt
+     vocabulary under phase 8's gates (0 resets, >= 45 tracked, keyframe
+     ATE < 5 cm), BoW ms per event, K1 / K2 launches;
+ 18. the viewer on that System: save_outputs writes a map SVG that parses
+     with one circle per valid point and one square per keyframe;
+     render_frame writes a PNG, decoded here with zlib: its pixels equal
+     the returned array, its slam_state the tracker's state, and >= 99%
+     of the tracked / untracked keypoint positions show a green / blue box;
+ 19. BA layouts on the last local BA of phase 17's map at its real caps:
+     sharded_bundle_adjust_two_stage over a one-rank NCCL group against
+     the unsharded CG two-stage solve; two gloo ranks in two processes on
+     the card against each other and the one-rank solve;
+     global_ba_point_sharded at one rank against the unsharded CG solve,
+     at two ranks against one; compensated against plain on the card, and
+     card against CPU (poses within 5e-4, >= 99% of the points within
+     5e-3, final costs within 1e-3 relative; compensated card vs CPU 1e-4
+     / 1e-3); the sharded solves against bundle_adjust_two_stage /
+     bundle_adjust (dense) by their final cost; each with its ms; then a System with use_mesh=True over phase 8's first 24 frames:
+     0 resets, >= 22 tracked, keyframe ATE < 5 cm, every local BA sharded,
+     ms per event. The NCCL group is destroyed at the end.
 
 The launch counters are set to 0 before phases 5, 8, 9, 9b, 10, 11, 12,
 each family's System run in 13, phase 14's, phase 15's run and its
-retrace, and phase 16's System run, and read after each. Every phase logs
+retrace, phase 16's System run, phase 17's System run and phase 19's
+mesh System, and read after each. Every phase logs
 its wall time. Prints the card (nvidia-smi
 name, power limit) first, then per-phase lines, one JSON line of kernel
 results (K1 and pack_bits: launches in phase 8, by phase and by family,
@@ -2240,6 +2267,502 @@ def stereo_phase(torch, device, pairs):
     return launches, k2_by
 
 
+# ---------------------------------------------------------------- phases 17-19
+ORBVOC_K, ORBVOC_L = 10, 6  # ORBvoc.txt's shape: 1,111,111 nodes, 10^6 words
+N_ORBVOC_QUERIES = 1000
+N_MESH_FRAMES = 24
+MIN_MESH_TRACKED = 22
+# bounds of the BA comparisons on a real local-BA problem: those of
+# tests/test_sharded_ba.py (poses 5e-4, points 5e-3) and
+# tests/test_point_sharded_ba.py (chi2 2e-2 relative + 5e-2) between
+# solves of the CG path (sharded or not; CUDA's index_add_ sums in no
+# fixed order, so two runs of one solve differ in the last bits). On a
+# real map a point seen at low parallax slides along its ray (0.08% of
+# the points beyond 5e-3 between one and two ranks, first card run), so
+# the point bound holds for >= 99% of the points, and the final costs
+# agree within 1e-3 relative. Against the dense solve, only the cost is
+# held: the dense and the CG solve reach the same cost (1.8e-7 relative)
+# 2.5e-3 apart in the poses, along a direction the local BA leaves
+# almost free (first card run)
+MAX_BA_POSE_DIFF = 5e-4
+MAX_BA_POINT_DIFF = 5e-3
+MIN_BA_POINT_SHARE = 0.99
+MAX_BA_COST_REL = 1e-3
+# card against CPU, compensated (tests/test_torch_ba_compensated.py)
+MAX_COMP_POSE_DIFF = 1e-4
+MAX_COMP_POINT_DIFF = 1e-3
+N_COMP_CPU_ITERS = 3
+
+
+def orbvoc_shaped_tree(seed=0):
+    """A balanced DBoW2 tree of ORBvoc.txt's shape (k = 10, L = 6, 32-byte
+    rows), its node rows drawn from `seed`: the port's Dbow2Vocabulary,
+    built in memory (parsing 1.1M text lines would take minutes)."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.place_recognition import dbow2_io
+
+    k, depth = ORBVOC_K, ORBVOC_L
+    n_nodes = sum(k ** l for l in range(depth + 1))
+    rng = np.random.default_rng(seed)
+    node_desc = np.zeros((n_nodes, 256), np.uint8)
+    node_desc[1:] = dbow2_io._bytes_to_bitplanes(
+        rng.integers(0, 256, (n_nodes - 1, 32), dtype=np.uint8))
+    # breadth first: node i's children are k * i + 1 .. k * i + k
+    n_inner = n_nodes - k ** depth
+    children = np.full((n_nodes, k), -1, np.int32)
+    children[:n_inner] = (k * np.arange(n_inner)[:, None] + 1 + np.arange(k)).astype(np.int32)
+    leaf_word = np.full(n_nodes, -1, np.int32)
+    leaf_word[n_inner:] = np.arange(k ** depth, dtype=np.int32)
+    weights = rng.uniform(0.5, 8.0, k ** depth).astype(np.float32)
+    return dbow2_io.Dbow2Vocabulary(branching=k, depth=depth, children=children,
+                                    node_desc=node_desc, leaf_word=leaf_word,
+                                    word_weight=weights, fold=k ** depth)
+
+
+def dbow2_phase(torch, device, frames, ext):
+    """Phase 17: the shipped orb32 tree written as DBoW2 text and loaded;
+    words of frame FIRST_TRACKED's descriptors on the card against the CPU
+    and the native tree; an ORBvoc.txt-shaped tree's words for 1000
+    descriptors, card against CPU (descent ms, device memory held); phase
+    8's System on the .txt vocabulary (phase 8's gates, BoW ms per event,
+    K1 / K2 launches). Returns (the System, its scene, the .txt path's
+    directory handle, launches (K1, K2, pack), K2 by search, the last
+    local-BA problem)."""
+    import tempfile
+
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch import perfcount
+    from anyfeature_vslam_tpu_torch.place_recognition import dbow2_io, vocab
+    from torch_slice_scene import FIRST_TRACKED
+
+    tmp = tempfile.TemporaryDirectory()
+    npz = os.path.join(ROOT, "vocabularies", "voc_orb32_38k.npz")
+    txt = os.path.join(tmp.name, "orb32_DBoW2_voc.txt")
+    native = vocab.Vocabulary.load(npz)
+    t0 = time.perf_counter()
+    dbow2_io.save_dbow2_text(native, txt)
+    t1 = time.perf_counter()
+    dvoc = vocab.Vocabulary.load(txt)
+    t2 = time.perf_counter()
+    log(f"[dbow2] {npz} -> DBoW2 text ({os.path.getsize(txt) / 2**20:.1f} MiB) in "
+        f"{(t1 - t0) * 1e3:.1f} ms, loaded in {(t2 - t1) * 1e3:.1f} ms: k {dvoc.branching}, L "
+        f"{dvoc.depth}, {len(dvoc.leaf_word)} nodes, {dvoc.n_words} words")
+    fail = []
+    if not (isinstance(dvoc, dbow2_io.Dbow2Vocabulary) and dvoc.n_words == native.n_words
+            and np.array_equal(dvoc.idf, native.idf)):
+        fail.append("the .txt tree is not the .npz tree")
+    feats = ext(torch.from_numpy(frames[FIRST_TRACKED]).to(device).float())
+    desc, valid = feats["desc_bits"], feats["valid"]
+    w_card = vocab.transform_words(dvoc, desc, valid)
+    w_cpu = vocab.transform_words(dvoc, desc.cpu(), valid.cpu())
+    w_native = vocab.transform_words(native, desc, valid)
+    ms_txt = time_ms(torch, lambda: vocab.transform_words(dvoc, desc, valid))
+    ms_native = time_ms(torch, lambda: vocab.transform_words(native, desc, valid))
+    same_cpu = bool(torch.equal(w_card.cpu(), w_cpu))
+    same_native = bool(torch.equal(w_card, w_native))
+    log(f"[dbow2] frame {FIRST_TRACKED}: {int(valid.sum())} descriptors; words on the card "
+        f"equal the CPU's {same_cpu}, the native tree's {same_native}; descent "
+        f"{ms_txt:.3f} ms (.txt tree), {ms_native:.3f} ms (native tree), eager")
+    if not (same_cpu and same_native):
+        fail.append("frame words differ")
+
+    t0 = time.perf_counter()
+    big = orbvoc_shaped_tree()
+    t_build = time.perf_counter() - t0
+    q = desc[valid][:N_ORBVOC_QUERIES].contiguous()
+    qv = torch.ones(len(q), dtype=torch.bool, device=device)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    wb_card = dbow2_io.transform_words_dbow2(big, q, qv)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - mem0
+    wb_cpu = dbow2_io.transform_words_dbow2(big, q.cpu(), qv.cpu())
+    ms_big = time_ms(torch, lambda: dbow2_io.transform_words_dbow2(big, q, qv))
+    same_big = bool(torch.equal(wb_card.cpu(), wb_cpu))
+    log(f"[dbow2] ORBvoc-shaped tree (k {ORBVOC_K}, L {ORBVOC_L}, {len(big.leaf_word)} nodes, "
+        f"{big.n_words} words; built on the host in {t_build:.1f} s): {len(q)} descriptors, "
+        f"words on the card equal the CPU's {same_big}; descent {ms_big:.3f} ms eager; device "
+        f"memory held by the tree {held / 2**20:.1f} MiB; {len(np.unique(wb_cpu.numpy()))} "
+        f"distinct words")
+    if not same_big:
+        fail.append("ORBvoc-shaped words differ")
+    del big, wb_card
+    if fail:
+        raise AssertionError(f"the DBoW2 phase failed: {fail}")
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    perfcount.reset()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    system, rows, events, sc, k2_by, _ = system_run(
+        torch, W, H, N_SYSTEM_FRAMES, device, frames=frames, async_mapping=False,
+        vocabulary_path=txt)
+    wall = time.perf_counter() - t0
+    k1, k2, pack = (c.launches for c in counters)
+    stats = system.tracker.stats
+    kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
+    bow = system.loop_closer.stage_times.get("bow", [])
+    log(f"[dbow2 system] {N_SYSTEM_FRAMES} frames {W}x{H} on the .txt vocabulary in {wall:.1f} "
+        f"s: tracked {stats['tracked_frames']}, lost {stats['lost_frames']}, resets "
+        f"{stats['resets']}; {system.map.n_keyframes()} keyframes, {system.map.n_points()} "
+        f"points; ATE (Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} "
+        f"m over {n_fr}; BoW per event: median "
+        f"{statistics.median(bow) * 1e3 if bow else float('nan'):.2f} ms over {len(bow)} events")
+    loop_stage_line(system, "dbow2 system")
+    log(f"[dbow2 system] launches: K1 {k1}, K2 {k2} (by search {json.dumps(k2_by)}), pack "
+        f"{pack}")
+    if stats["resets"] != 0:
+        fail.append(f"{stats['resets']} resets")
+    if stats["tracked_frames"] < MIN_SYSTEM_TRACKED:
+        fail.append(f"{stats['tracked_frames']} tracked frames")
+    if not kf_ate < MAX_ATE_M:
+        fail.append(f"keyframe ATE {kf_ate:.4f} m")
+    if not isinstance(system.vocabulary, dbow2_io.Dbow2Vocabulary) or not bow \
+            or len(system.loop_times) != len(events):
+        fail.append("the loop stage did not run on the .txt vocabulary")
+    if min(r["k1"] for r in rows) < 1 or k2 < 1 or pack < 1:
+        fail.append("a kernel of the path was not launched")
+    if system.local_mapper.last_ba_problem is None:
+        fail.append("no local BA was recorded")
+    if fail:
+        raise AssertionError(f"the DBoW2 System failed: {fail}")
+    return system, sc, tmp, (k1, k2, pack), k2_by, system.local_mapper.last_ba_problem
+
+
+def _decode_png(path):
+    """(H, W, 3) uint8 pixels and the tEXt chunks of an 8-bit RGB PNG
+    whose rows use filter type 0 (what io/viewer.write_png writes)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    at, idat, text, hdr = 8, b"", {}, None
+    while at < len(data):
+        n, kind = struct.unpack(">I4s", data[at:at + 8])
+        body = data[at + 8:at + 8 + n]
+        crc = struct.unpack(">I", data[at + 8 + n:at + 12 + n])[0]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"bad CRC in {kind}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        elif kind == b"tEXt":
+            key, value = body.split(b"\0", 1)
+            text[key.decode("latin-1")] = value.decode("latin-1")
+        at += 12 + n
+    w, h, bits, color = hdr[:4]
+    if (bits, color) != (8, 2):
+        raise AssertionError(f"not 8-bit RGB: {hdr}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3), text
+
+
+def viewer_phase(system, frames):
+    """Phase 18: save_outputs of phase 17's System (a parseable map SVG:
+    one circle per valid point, one square per keyframe) and render_frame
+    of its last frame (the PNG decoded with zlib: its pixels the returned
+    array, its slam_state the tracker's state, a box of the right colour at
+    >= 99% of the tracked and untracked keypoint positions, no pixel of
+    another colour)."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    fail = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        system.save_outputs(tmp, "smoke")
+        t_save = time.perf_counter() - t0
+        svg = os.path.join(tmp, "smoke_map.svg")
+        root = ET.parse(svg).getroot()
+        n_circle = sum(el.tag.endswith("circle") for el in root)
+        n_rect = sum(el.tag.endswith("rect") for el in root) - 1  # the background
+        n_path = sum(el.tag.endswith("path") for el in root)
+        log(f"[viewer] save_outputs in {t_save * 1e3:.1f} ms; map.svg "
+            f"{os.path.getsize(svg) / 1024:.1f} KiB: {n_circle} circles ({system.map.n_points()} "
+            f"points), {n_rect} keyframe squares ({system.map.n_keyframes()} keyframes), "
+            f"{n_path} trajectory path; files {sorted(os.listdir(tmp))}")
+        if (n_circle, n_rect, n_path) != (system.map.n_points(), system.map.n_keyframes(), 1):
+            fail.append("the map SVG does not hold the map")
+        img = frames[-1]  # the last frame the System tracked
+        png = os.path.join(tmp, "frame.png")
+        t0 = time.perf_counter()
+        out = system.render_frame(img, path=png)
+        t_render = time.perf_counter() - t0
+        pixels, text = _decode_png(png)
+        f = system.tracker.last
+        xy, valid = f.feats["xy"], f.feats["valid"]
+        u = np.round(xy[:, 0].astype(np.float64)).astype(int)
+        v = np.round(xy[:, 1].astype(np.float64)).astype(int)
+        h, w = img.shape
+        shown = valid & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        tracked = shown & (f.matches >= 0)
+        # one box per keypoint position, in the colour of the last keypoint
+        # drawn there (keypoints of two pyramid levels can round to one
+        # pixel); a box is there when a pixel of its 7x7 outline (clipped to
+        # the image, as drawn) shows that colour: later boxes overdraw
+        # parts of earlier ones
+        last = {}
+        for i in np.nonzero(shown)[0]:
+            last[(int(u[i]), int(v[i]))] = bool(tracked[i])
+        pos = np.array(list(last), dtype=np.int64).reshape(-1, 2)
+        is_green = np.array(list(last.values()), bool)
+        d = np.arange(-3, 4)
+        ring = np.array([(dy, dx) for dy in d for dx in d if max(abs(dy), abs(dx)) == 3])
+        ys = np.clip(pos[:, 1:2] + ring[:, 0], 0, h - 1)
+        xs = np.clip(pos[:, 0:1] + ring[:, 1], 0, w - 1)
+        outline = out[ys, xs]  # (boxes, 24, 3)
+        green = (outline == (90, 230, 90)).all(-1).any(-1)
+        blue = (outline == (110, 160, 255)).all(-1).any(-1)
+        n_green, n_blue = int(green[is_green].sum()), int(blue[~is_green].sum())
+        n_tracked, n_untracked = int(is_green.sum()), int((~is_green).sum())
+        coloured = (out[..., 0] != out[..., 1]) | (out[..., 1] != out[..., 2])
+        stray = int((coloured & ~(out == (90, 230, 90)).all(-1)
+                     & ~(out == (110, 160, 255)).all(-1)).sum())
+        log(f"[viewer] render_frame in {t_render * 1e3:.1f} ms ({os.path.getsize(png) / 1024:.1f} "
+            f"KiB PNG): pixels equal the returned array {np.array_equal(pixels, out)}; "
+            f"slam_state {text.get('slam_state')!r} (tracker {system.tracker.state.name}); "
+            f"{int(shown.sum())} keypoints in the image at {len(pos)} positions: green boxes at "
+            f"{n_green} of {n_tracked} tracked positions, blue at {n_blue} of {n_untracked} "
+            f"untracked; {stray} pixels of another colour")
+        if not np.array_equal(pixels, out) or text.get("slam_state") != system.tracker.state.name:
+            fail.append("the PNG is not the overlay")
+        if n_green < 0.99 * n_tracked or n_blue < 0.99 * n_untracked or n_tracked < 100 \
+                or stray:
+            fail.append("the boxes do not match the keypoints")
+    if fail:
+        raise AssertionError(f"the viewer phase failed: {fail}")
+
+
+def _ba_compare(tag, got, want, n_pt, valid, pose_tol=MAX_BA_POSE_DIFF,
+                point_tol=MAX_BA_POINT_DIFF, share=MIN_BA_POINT_SHARE, cost_only=False):
+    """got / want: (poses, points, chi2) as numpy. The poses' largest
+    difference, the share of the live points within point_tol, and the
+    final costs (the sum of chi2 over the valid observations), all
+    gated unless cost_only (the cost alone: a CG solve against the dense
+    one). Returns a failure text or None."""
+    import numpy as np
+
+    dp = float(np.abs(got[0] - want[0]).max())
+    dx = np.linalg.norm(got[1][:n_pt] - want[1][:n_pt], axis=1)
+    within = float((dx <= point_tol).mean())
+    c_got, c_want = (float(np.sum(np.where(valid, c, 0.0), dtype=np.float64))
+                     for c in (got[2], want[2]))
+    rel = abs(c_got - c_want) / max(abs(c_want), 1e-12)
+    log(f"[ba layouts] {tag}: poses {dp:.3g} apart, points {float(np.median(dx)):.3g} median / "
+        f"{float(dx.max()):.3g} max apart ({within:.4f} within {point_tol:g}), final cost "
+        f"{c_got:.6g} against {c_want:.6g} ({rel:.3g} relative)")
+    if rel > MAX_BA_COST_REL or not (cost_only or (dp <= pose_tol and within >= share)):
+        return tag
+    return None
+
+
+def ba_layouts_phase(torch, device, problem, intrinsics, frames):
+    """Phase 19: the last local BA of phase 17's map at its real caps,
+    solved as bundle_adjust_two_stage (dense) and as the unsharded CG
+    two-stage solve, as sharded_bundle_adjust_two_stage over a one-rank
+    NCCL group and over two gloo ranks in two processes on this card, as
+    global_ba_point_sharded at one rank and two, and compensated on the
+    card and the CPU, each held to its CG reference (the dense solve by
+    its cost); then a System with use_mesh=True over phase 8's first 24
+    frames. Returns (launches K1, K2, pack; K2 by search)."""
+    import tempfile
+
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch import perfcount
+    from anyfeature_vslam_tpu_torch.ops import ba
+    from anyfeature_vslam_tpu_torch.parallel import point_sharded_ba, sharded_ba
+
+    arrays, info = problem
+    n_pt = info["n_pt"]
+    args = [torch.from_numpy(a).to(device) for a in arrays] + list(intrinsics)
+    valid = arrays[7]
+    log(f"[ba layouts] the last local BA of phase 17: {info['n_kf']} keyframes, {n_pt} points, "
+        f"{info['n_obs']} observations; caps k {info['k_cap']} p {info['p_cap']} o "
+        f"{info['o_cap']} ({'dense' if info['dense'] else 'CG'} unsharded)")
+    host = lambda ts: [t.cpu().numpy() if torch.is_tensor(t) else t for t in ts]  # noqa: E731
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    mesh = sharded_ba.make_mesh(device)
+    mesh.all_reduce(torch.zeros(1, device=device))
+    torch.cuda.synchronize()
+    log(f"[ba layouts] one-rank NCCL group and its first all-reduce in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (left out of the timings)")
+    fail = []
+    try:
+        ba.bundle_adjust_two_stage(*args)  # warm
+        ref, ms_ref = timed(lambda: ba.bundle_adjust_two_stage(*args))
+        cg, ms_cg = timed(lambda: ba.two_stage(ba._bundle_adjust_impl, *args))
+        sh, ms_sh = timed(lambda: sharded_ba.sharded_bundle_adjust_two_stage(mesh, *args))
+        log(f"[ba layouts] two-stage solve ms: bundle_adjust_two_stage {ms_ref:.1f}, the "
+            f"unsharded CG {ms_cg:.1f}, sharded over the one-rank NCCL group {ms_sh:.1f}")
+        hs, hr, hg = host(sh), host(ref), host(cg)
+        # two-stage costs over the observations both solves keep
+        fail.append(_ba_compare("one-rank NCCL sharded vs the unsharded CG two-stage solve",
+                                (hs[0], hs[1], hs[2]), (hg[0], hg[1], hg[2]), n_pt,
+                                hs[4] & hg[4]))
+        fail.append(_ba_compare("one-rank NCCL sharded vs bundle_adjust_two_stage (dense)",
+                                (hs[0], hs[1], hs[2]), (hr[0], hr[1], hr[2]), n_pt,
+                                hs[4] & hr[4], cost_only=True))
+        same_out = float((hs[4] == hr[4]).mean())
+        log(f"[ba layouts] final observation sets equal on {same_out:.5f} of the observations")
+
+        # two gloo ranks in two processes on this card. The map's padding
+        # lies at the end of the observations and points, so the problem
+        # is spread first (observations alternating between the ranks'
+        # halves, the points in a seeded order): both ranks then hold real
+        # observations and points, and the sums really cross the ranks
+        o_cap, p_cap = len(arrays[3]), len(arrays[1])
+        obs_perm = np.concatenate([np.arange(0, o_cap, 2), np.arange(1, o_cap, 2)])
+        pt_perm = np.random.default_rng(0).permutation(p_cap)
+        pt_inv = np.argsort(pt_perm)
+        with tempfile.TemporaryDirectory() as tmp:
+            prob = os.path.join(tmp, "prob.npz")
+            np.savez(prob, poses=arrays[0], pts=arrays[1][pt_perm], kf_free=arrays[2],
+                     obs_kf=arrays[3][obs_perm], obs_pt=pt_inv[arrays[4][obs_perm]],
+                     obs_uv=arrays[5][obs_perm], obs_w=arrays[6][obs_perm],
+                     obs_valid=arrays[7][obs_perm], intr=np.array(intrinsics), n_iters=10,
+                     solves="two_stage,point")
+            outs = [os.path.join(tmp, f"out{r}.npz") for r in range(2)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, "-m",
+                                       "anyfeature_vslam_tpu_torch.parallel.rank_worker", prob,
+                                       str(r), "2", os.path.join(tmp, "store"),
+                                       torch.device(device).type, outs[r]],
+                                      cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for r in range(2)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=300)[0])
+            finally:
+                for p in procs:
+                    p.kill()
+                    p.wait()
+            wall = time.perf_counter() - t0
+            for r, (p, out) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    log(out[-3000:])
+                    raise AssertionError(f"gloo rank {r} failed")
+            r0, r1 = (dict(np.load(o)) for o in outs)
+        same = all(np.array_equal(r0[k], r1[k]) for k in r0 if not k.startswith("ms_"))
+        for k in ("ts_pts", "ps_pts"):
+            r0[k] = r0[k][pt_inv]
+        for k in ("ts_chi2", "ts_valid", "ps_chi2"):
+            back = np.empty_like(r0[k])
+            back[obs_perm] = r0[k]
+            r0[k] = back
+        log(f"[ba layouts] two gloo ranks on the card ({wall:.1f} s with process start): the ranks "
+            f"agree {same}; rank 0 ms: two-stage {float(r0['ms_two_stage']):.1f}, point-sharded "
+            f"{float(r0['ms_point']):.1f}")
+        if not same:
+            fail.append("the gloo ranks disagree")
+        fail.append(_ba_compare("two gloo ranks vs the one-rank sharded solve",
+                                (r0["ts_poses"], r0["ts_pts"], r0["ts_chi2"]),
+                                (hs[0], hs[1], hs[2]), n_pt, hs[4] & r0["ts_valid"]))
+
+        one, ms_one = timed(lambda: ba.bundle_adjust(*args))
+        one_cg, ms_one_cg = timed(lambda: ba._bundle_adjust_impl(*args))
+        ps, ms_ps = timed(lambda: point_sharded_ba.global_ba_point_sharded(*args, mesh=mesh))
+        ho, hog = host(one), host(one_cg)
+        log(f"[ba layouts] single stage ms: bundle_adjust (dense) {ms_one:.1f}, the unsharded "
+            f"CG {ms_one_cg:.1f}, global_ba_point_sharded at one rank {ms_ps:.1f} (host "
+            f"partition included)")
+        fail.append(_ba_compare("one-rank point-sharded vs the unsharded CG solve",
+                                (ps[0], ps[1], ps[2]), (hog[0], hog[1], hog[2]), n_pt, valid))
+        fail.append(_ba_compare("one-rank point-sharded vs bundle_adjust (dense)",
+                                (ps[0], ps[1], ps[2]), (ho[0], ho[1], ho[2]), n_pt, valid,
+                                cost_only=True))
+        fail.append(_ba_compare("two gloo ranks point-sharded vs one rank",
+                                (r0["ps_poses"], r0["ps_pts"], r0["ps_chi2"]),
+                                (ps[0], ps[1], ps[2]), n_pt, valid))
+        chi_share = float(np.isclose(ps[2][valid], hog[2][valid], rtol=2e-2, atol=5e-2).mean())
+        log(f"[ba layouts] point-sharded chi2 within 2e-2 relative + 5e-2 of the unsharded CG "
+            f"solve's: {chi_share:.5f} of the valid observations")
+        if chi_share < MIN_BA_POINT_SHARE:
+            fail.append("point-sharded chi2")
+
+        comp, ms_comp = timed(lambda: ba.bundle_adjust(*args, compensated=True))
+        hc = host(comp)
+        fail.append(_ba_compare("compensated vs plain (the CG solve), card",
+                                (hc[0], hc[1], hc[2]), (hog[0], hog[1], hog[2]), n_pt, valid))
+        # card against CPU over N_COMP_CPU_ITERS LM steps (the CPU's CG
+        # solve at these caps takes tens of seconds per 10 steps)
+        comp3, ms_comp3 = timed(lambda: ba.bundle_adjust(*args, n_iters=N_COMP_CPU_ITERS,
+                                                         compensated=True))
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        t0 = time.perf_counter()
+        comp3_cpu = ba.bundle_adjust(*cpu_args, n_iters=N_COMP_CPU_ITERS, compensated=True)
+        ms_comp3_cpu = (time.perf_counter() - t0) * 1e3
+        hc3, hcc3 = host(comp3), host(comp3_cpu)
+        log(f"[ba layouts] compensated bundle_adjust ms: card {ms_comp:.1f} (10 LM steps), "
+            f"{ms_comp3:.1f} ({N_COMP_CPU_ITERS} steps); CPU {ms_comp3_cpu:.1f} "
+            f"({N_COMP_CPU_ITERS} steps)")
+        fail.append(_ba_compare("compensated card vs CPU", (hc3[0], hc3[1], hc3[2]),
+                                (hcc3[0], hcc3[1], hcc3[2]), n_pt, valid,
+                                pose_tol=MAX_COMP_POSE_DIFF, point_tol=MAX_COMP_POINT_DIFF))
+
+        # a System with use_mesh=True over phase 8's first frames
+        counters = _counters()
+        torch.cuda.synchronize()
+        perfcount.reset()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        system, rows, events, sc, k2_by, _ = system_run(
+            torch, W, H, N_MESH_FRAMES, device, frames=frames, async_mapping=False,
+            use_mesh=True)
+        wall = time.perf_counter() - t0
+        k1, k2, pack = (c.launches for c in counters)
+        stats = system.tracker.stats
+        kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
+        lm = system.local_mapper
+        log(f"[mesh system] {N_MESH_FRAMES} frames {W}x{H} with use_mesh=True (one-rank group "
+            f"of size {system.mesh.size}) in {wall:.1f} s: tracked {stats['tracked_frames']}, "
+            f"lost {stats['lost_frames']}, resets {stats['resets']}; "
+            f"{system.map.n_keyframes()} keyframes; ATE (Sim3-aligned) keyframes {kf_ate:.5f} m "
+            f"over {n_kf}, frames {fr_ate:.5f} m over {n_fr}; {len(events)} events, median "
+            f"{statistics.median(e['ms'] for e in events) if events else float('nan'):.1f} ms")
+        ba_lines(lm.ba_log, "mesh system", "local BA (sharded)")
+        log(f"[mesh system] launches: K1 {k1}, K2 {k2} (by search {json.dumps(k2_by)}), pack "
+            f"{pack}")
+        if stats["resets"] != 0 or stats["tracked_frames"] < MIN_MESH_TRACKED \
+                or not kf_ate < MAX_ATE_M:
+            fail.append(f"the mesh System's gates ({stats['resets']} resets, "
+                        f"{stats['tracked_frames']} tracked, keyframe ATE {kf_ate:.4f} m)")
+        if not lm.ba_log or not all(b.get("mesh") == 1 and not b["dense"] for b in lm.ba_log):
+            fail.append("a local BA of the mesh System was not sharded")
+        if min(r["k1"] for r in rows) < 1 or k2 < 1 or pack < 1:
+            fail.append("a kernel of the path was not launched")
+    finally:
+        mesh.close()
+    fail = [f for f in fail if f]
+    if fail:
+        raise AssertionError(f"the BA layouts phase failed: {fail}")
+    return (k1, k2, pack), k2_by
+
+
 def main() -> int:
     import torch
 
@@ -2731,6 +3254,31 @@ def main() -> int:
     stereo_launches, stereo_by = stereo_phase(torch, device, stereo_pairs)
     log(f"[phase 16] {time.perf_counter() - t_phase:.1f} s")
 
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 17 begins")
+    # ---- 17. DBoW2 text vocabularies: the shipped tree as .txt, an
+    # ORBvoc.txt-shaped tree, phase 8's System on the .txt vocabulary
+    t_phase = time.perf_counter()
+    dsys, _, dtmp, dbow2_launches, dbow2_by, last_ba = dbow2_phase(
+        torch, device, bench_frames[:N_SYSTEM_FRAMES], ext)
+    log(f"[phase 17] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 18 begins")
+    # ---- 18. the viewer: the map SVG and the frame overlay's PNG
+    t_phase = time.perf_counter()
+    viewer_phase(dsys, bench_frames[:N_SYSTEM_FRAMES])
+    intrinsics = dsys.local_mapper.intrinsics
+    del dsys
+    dtmp.cleanup()
+    log(f"[phase 18] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 19 begins")
+    # ---- 19. BA layouts: sharded over one NCCL rank and two gloo ranks,
+    # point-sharded, compensated; a System with use_mesh=True
+    t_phase = time.perf_counter()
+    mesh_launches, mesh_by = ba_layouts_phase(torch, device, last_ba, intrinsics,
+                                              bench_frames[:N_MESH_FRAMES])
+    log(f"[phase 19] {time.perf_counter() - t_phase:.1f} s")
+
     # per tracked frame: K1 over the 8 levels; pack_bits at frame 13's
     # keypoints; K2 once per search: the tracked frame's searches (frame
     # 13's, summed: events and bounds; phase 5b's frames: device time), the
@@ -2743,9 +3291,9 @@ def main() -> int:
     k2_src = dict(route="cuda", source="anyfeature_vslam_tpu_torch/csrc/best_two.cu",
                   replaces="anyfeature_vslam_tpu/ops/pallas_match.py:179", library_ms=None)
     phases = ("system", "reloc", "mono_localization", "loop", "async", "threaded", "rgbd",
-              "rgbd_localization", "stereo")
+              "rgbd_localization", "stereo", "dbow2_system", "mesh_system")
     by_phase = (k2_by, reloc_by, monoloc_by, loop_by, async_by, threaded_by, rgbd_by, rgbdloc_by,
-                stereo_by)
+                stereo_by, dbow2_by, mesh_by)
     by_search = {k: sum(b.get(k, 0) for b in by_phase) for k in SEARCHES + STAGED_SEARCHES}
     k2_entries = [dict(
         name="best_two[tracking]", search="tracking", **k2_src, launches=by_search["tracking"],
@@ -2777,7 +3325,7 @@ def main() -> int:
     launches_by_phase = dict(zip(phases, ((sys_k1, sys_k2, sys_pack), reloc_launches,
                                           monoloc_launches, loop_launches, async_launches,
                                           threaded_launches, rgbd_launches, rgbdloc_launches,
-                                          stereo_launches)))
+                                          stereo_launches, dbow2_launches, mesh_launches)))
     log(json.dumps({"kernels": [
         {"name": "fast_nms", "route": "cuda",
          "source": "anyfeature_vslam_tpu_torch/csrc/fast_nms.cu",

@@ -278,7 +278,9 @@ def test_port_imports_neither_jax_nor_pil():
         "assert 'anyfeature_vslam_tpu_torch.slam.fast_track' in mods, mods\n"
         "for m in ('place_recognition.vocab', 'place_recognition.database', 'slam.loop_closing',\n"
         "          'ops.pnp', 'ops.sim3', 'ops.pose_graph', 'frontend.scalespace',\n"
-        "          'frontend.dog', 'frontend.graddesc', 'io.precomputed'):\n"
+        "          'frontend.dog', 'frontend.graddesc', 'io.precomputed',\n"
+        "          'place_recognition.dbow2_io', 'io.viewer', 'parallel.sharded_ba',\n"
+        "          'parallel.point_sharded_ba'):\n"
         "    assert 'anyfeature_vslam_tpu_torch.' + m in mods, (m, mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'PIL', 'anyfeature_vslam_tpu.'))]\n"
         "assert not bad, bad\n"

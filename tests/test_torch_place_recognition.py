@@ -34,6 +34,7 @@ from anyfeature_vslam_tpu.slam.map_state import SlamMap as JaxMap
 from anyfeature_vslam_tpu_torch.frontend.extractor import (ExtractorConfig, FeatureExtractor,
                                                            OrbExtractor)
 from anyfeature_vslam_tpu_torch.place_recognition import database as tdb
+from anyfeature_vslam_tpu_torch.place_recognition import dbow2_io as tdbow2
 from anyfeature_vslam_tpu_torch.place_recognition import vocab as tvoc
 from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
 from loop_map import build_loop_map, train_map_vocabulary
@@ -60,15 +61,20 @@ def frame_descs():
     return out
 
 
-def test_shipped_vocabulary_loads_the_same(vocabs):
+def test_shipped_vocabulary_loads_the_same(vocabs, tmp_path):
     jv, tv = vocabs
     assert (tv.branching, tv.depth, tv.n_words) == (jv.branching, jv.depth, jv.n_words) \
         == (14, 4, 38416)
     for a, b in zip(jv.centroids, tv.centroids):
         assert np.array_equal(a, b)
     assert np.array_equal(jv.idf, tv.idf)
-    with pytest.raises(NotImplementedError, match="queue item 14"):
-        tvoc.Vocabulary.load("ORBvoc.txt")
+    # a .txt path is a DBoW2 text vocabulary (tests/test_torch_dbow2_io.py)
+    with pytest.raises(FileNotFoundError):
+        tvoc.Vocabulary.load(str(tmp_path / "ORBvoc.txt"))
+    path = str(tmp_path / "voc.txt")
+    tdbow2.save_dbow2_text(tv, path)
+    loaded = tvoc.Vocabulary.load(path)
+    assert isinstance(loaded, tdbow2.Dbow2Vocabulary) and loaded.n_words == tv.n_words
 
 
 def test_word_ids_equal_on_rendered_frames(vocabs, frame_descs):

@@ -24,11 +24,13 @@ import os
 
 import numpy as np
 import pytest
+import torch.distributed
 
 from anyfeature_vslam_tpu.ops.camera import CameraParams as JaxCamera
 from anyfeature_vslam_tpu.system import System as JaxSystem
 from anyfeature_vslam_tpu_torch import run_mono
 from anyfeature_vslam_tpu_torch.io import evaluation
+from anyfeature_vslam_tpu_torch.place_recognition import dbow2_io
 from anyfeature_vslam_tpu_torch.system import System
 from torch_slice_scene import SliceScene
 
@@ -158,14 +160,17 @@ def test_system_48_frames_ate():
     assert evaluation.ate_rmse(est, gt)[0] < 0.05
 
 
-def test_system_defaults_and_unported_options():
+def test_system_defaults_and_unported_options(tmp_path):
     """The JAX System's defaults: asynchronous mapping without the worker
     thread, pipeline depth 0 (2 with the worker), the shipped orb32
     vocabulary, place recognition (the database the tracker relocalizes
     with) and the loop closer; threaded mapping and a pipeline depth are
     accepted; a depth sensor needs bf and takes the JAX default th_depth;
-    localization mode is set and cleared at the next frame; a device mesh
-    and DBoW2 text vocabularies still raise, naming their ROADMAP item."""
+    localization mode is set and cleared at the next frame; a DBoW2 text
+    vocabulary loads as a Dbow2Vocabulary and feeds the database;
+    use_mesh=True builds a one-rank mesh (gloo on the CPU) that local and
+    global BA share and shutdown() closes, "auto" builds none without a
+    multi-rank group."""
     import inspect
 
     params = inspect.signature(System).parameters
@@ -192,9 +197,21 @@ def test_system_defaults_and_unported_options():
         threaded.shutdown(timeout=30.0)
     assert threaded._worker is None
     assert System(cam, device="cpu", pipeline_depth=3).tracker.pipeline_depth == 3
-    for kw, item in ((dict(vocabulary_path="ORBvoc.txt"), "14"), (dict(use_mesh=True), "12")):
-        with pytest.raises(NotImplementedError, match=f"queue item {item}"):
-            System(cam, device="cpu", **kw)
+    assert system.mesh is None and system.local_mapper.mesh is None
+    txt = str(tmp_path / "voc.txt")
+    dbow2_io.save_dbow2_text(system.vocabulary, txt)
+    with_txt = System(cam, device="cpu", vocabulary_path=txt)
+    assert isinstance(with_txt.vocabulary, dbow2_io.Dbow2Vocabulary)
+    assert with_txt.vocabulary.n_words == 38416 and with_txt.database.vocab is with_txt.vocabulary
+    meshed = System(cam, device="cpu", use_mesh=True)
+    try:
+        assert meshed.mesh is not None and meshed.mesh.size == 1 and meshed.mesh.rank == 0
+        assert meshed.local_mapper.mesh is meshed.mesh is meshed.loop_closer.mesh
+    finally:
+        meshed.shutdown()
+    assert not torch.distributed.is_initialized()  # shutdown destroyed the group it made
+    with pytest.raises(ValueError, match="use_mesh"):
+        System(cam, device="cpu", use_mesh="always")
     with pytest.raises(ValueError, match="bf"):
         System(cam, device="cpu", sensor="rgbd")
     rgbd = System(cam, device="cpu", sensor="rgbd", bf=40.0)
