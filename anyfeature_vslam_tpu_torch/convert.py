@@ -1,7 +1,8 @@
 """Numpy state of the JAX side -> the port's tensors on an explicit device.
 
 The one family with learned weights is anyfeat_nonbin: ``learned48_from_numpy``
-carries the JAX package's MLP parameters into the port's ``Learned48``.
+carries the MLP parameters of a weights file (the JAX package's format) into
+the port's ``Learned48``, and ``learned48_to_numpy`` takes them back out.
 The other families' constants live in ``FeatureExtractor``. What else
 crosses over is the camera and the fused step's device state, laid out as
 ``Tracker._build_fast_carry`` / ``_build_fast_state`` build it in the JAX
@@ -55,6 +56,16 @@ def learned48_from_numpy(params: dict, device) -> Learned48:
             layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
             layer.bias.copy_(torch.from_numpy(b))
     return mlp.requires_grad_(False).to(device)
+
+
+def learned48_to_numpy(mlp: Learned48) -> dict:
+    """The inverse of ``learned48_from_numpy``: w1..w3 as (in, out) and
+    b1..b3, float32 numpy arrays in the weights file's format."""
+    out = {}
+    for k, layer in enumerate((mlp.fc1, mlp.fc2, mlp.fc3), start=1):
+        out[f"w{k}"] = np.ascontiguousarray(layer.weight.detach().cpu().numpy().T, np.float32)
+        out[f"b{k}"] = np.asarray(layer.bias.detach().cpu().numpy(), np.float32)
+    return out
 
 
 def tensor_from_numpy(a, device):

@@ -5,11 +5,12 @@ A 20x20 patch is sampled on the keypoint's rotated grid (graddesc's
 constant bilinear matrix, one product over all 16 rotation steps and a
 pick of the keypoint's step), mean/std normalised, and mapped by a small
 MLP (400 -> 256 -> relu -> 128 -> relu -> 48) to a unit-L2 descriptor.
-The trained weights ship with the JAX package as a data file,
-anyfeature_vslam_tpu/frontend/weights/learned48.npz; the port reads the
-file by path (``load_weights``) and carries it into ``Learned48``
-(``convert.learned48_from_numpy``). A missing file raises: the JAX
-package's grad48 fallback is not ported.
+The trained weights ship with the port as ``weights/learned48.npz`` beside
+this module (a copy of the JAX package's file, in its format: w1..w3 as
+(in, out)); ``load_weights`` reads it and ``convert.learned48_from_numpy``
+carries it into ``Learned48``. ``tools/train_patch_descriptor.py`` trains
+new weights from ``init_params`` and writes that file. A missing file
+raises: the JAX package's grad48 fallback is not ported.
 
 Precision as in the JAX package: the sampling product on operands rounded
 to bf16, multiplied in fp32 (see ringdesc.py); the MLP in fp32.
@@ -27,9 +28,8 @@ from . import graddesc
 from .orientation import gather_patches
 from .ringdesc import bf16_round, rotation_step
 
-WEIGHTS_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "anyfeature_vslam_tpu", "frontend", "weights", "learned48.npz")
+WEIGHTS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights",
+                            "learned48.npz")
 
 
 def load_weights(path: str = WEIGHTS_PATH) -> dict:
@@ -76,3 +76,19 @@ def describe_learned48(img, xy, angle, valid, sample_mat, mlp):
     mlp: a ``Learned48`` on the same device."""
     d = mlp(sample_canonical_patches(img, xy, angle, sample_mat))
     return torch.where(valid[:, None], d, torch.zeros_like(d))
+
+
+def init_params(seed: int = 0) -> dict:
+    """He-initialised MLP parameters as numpy arrays in the weights file's
+    layout (w (in, out), b zero), drawn from ``np.random.default_rng(seed)``
+    in the JAX package's order (the training tool's starting point)."""
+    rng = np.random.default_rng(seed)
+
+    def lin(n_in, n_out):
+        w = rng.normal(0, np.sqrt(2.0 / n_in), (n_in, n_out)).astype(np.float32)
+        return w, np.zeros(n_out, np.float32)
+
+    w1, b1 = lin(400, 256)
+    w2, b2 = lin(256, 128)
+    w3, b3 = lin(128, 48)
+    return dict(w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)

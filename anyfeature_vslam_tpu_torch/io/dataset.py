@@ -11,8 +11,9 @@ Covers the reference's two dataset layouts:
 Calibration is the flat OpenCV-style YAML (Camera.fx .. Camera.k3, w/h, fps).
 The camera comes back as the port's ``CameraParams`` on the CPU; ``System``
 moves it to its device. ``find_vocabulary`` looks a feature's vocabulary up
-in a reference-style folder. PIL is imported only inside ``load_gray`` and
-``load_depth``, so the module imports on machines without it.
+in a reference-style folder. PNG frames and depth maps are decoded by
+``png.read_png`` (zlib and struct); PIL is imported only for a file in
+another format, and where it is missing such a file raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..ops.camera import CameraParams
+from . import png
 
 # TUM RGB-D: an image's depth map is the one nearest in time, at most
 # MAX_DEPTH_DT s away; 16-bit PNG depth at 5000 units per metre
@@ -141,26 +143,48 @@ def load_sequence_rgbd(sequence_path: str, calibration_yaml: str | None = None) 
     return Sequence(ts, paths, cam, fps, depth_paths=dpaths, depth_factor=TUM_DEPTH_FACTOR)
 
 
+# leading bytes of the image formats a sequence may hold besides PNG
+_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
+          (b"P5", "PGM"), (b"P6", "PPM"), (b"RIFF", "WEBP"), (b"GIF8", "GIF"))
+
+
+def _read_image(path: str):
+    """(the array ``np.asarray(PIL.Image.open(path))`` gives, PIL's mode, a
+    function returning PIL's ``convert("RGB")`` of it). A PNG is decoded
+    by ``png.read_png``; any other file goes to PIL, or raises ValueError
+    where PIL cannot be imported."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == png.SIGNATURE:
+        arr, mode, palette = png.read_png(path)
+        return arr, mode, lambda: png.to_rgb(arr, mode, palette)
+    try:
+        from PIL import Image
+    except ImportError:
+        fmt = next((name for magic, name in _MAGIC if head.startswith(magic)), "unknown")
+        raise ValueError(f"{path}: a {fmt} image, and only PNG is read without PIL") from None
+    img = Image.open(path)
+    return np.asarray(img), img.mode, lambda: np.asarray(img.convert("RGB"))
+
+
 def load_depth(path: str, factor: float = 1.0) -> np.ndarray:
     """A depth map as float32 metres (the 16-bit PNG times factor; 0 = no
     depth)."""
-    from PIL import Image
-
-    arr = np.asarray(Image.open(path)).astype(np.float32)
-    return arr * np.float32(factor)
+    arr, _, _ = _read_image(path)
+    return arr.astype(np.float32) * np.float32(factor)
 
 
 def load_gray(path: str) -> np.ndarray:
     """Load an image as float32 grayscale (H, W) in [0, 255] with the
-    cv::cvtColor weights 0.299 R + 0.587 G + 0.114 B."""
-    from PIL import Image
-
-    img = Image.open(path)
-    if img.mode != "L":
-        arr = np.asarray(img.convert("RGB"), dtype=np.float32)
+    cv::cvtColor weights 0.299 R + 0.587 G + 0.114 B on PIL's
+    ``convert("RGB")`` of it (alpha dropped); an 8-bit gray image as it is.
+    PNGs are decoded by ``png.read_png``, other formats by PIL."""
+    arr, mode, rgb = _read_image(path)
+    if mode != "L":
+        arr = rgb().astype(np.float32)
         gray = 0.299 * arr[..., 0] + 0.587 * arr[..., 1] + 0.114 * arr[..., 2]
     else:
-        gray = np.asarray(img, dtype=np.float32)
+        gray = arr.astype(np.float32)
     return gray.astype(np.float32)
 
 

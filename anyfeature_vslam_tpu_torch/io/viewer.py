@@ -7,16 +7,15 @@ top-down orthographic SVG of map points, keyframe centres and the frame
 trajectory, and the current frame with its keypoints boxed (green: tracked
 to a map point, blue: not). Host numpy over the host map, as in the JAX
 package. The overlay's PNG is written with the standard library (zlib,
-struct): 8-bit RGB, the tracker's state in a ``tEXt`` chunk keyed
-``slam_state``.
+struct; ``png.write_png``): 8-bit RGB, the tracker's state in a ``tEXt``
+chunk keyed ``slam_state``.
 """
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
+
+from .png import write_png
 
 
 def _project_axes(pts, axes):
@@ -67,25 +66,6 @@ def render_map_svg(slam_map, path: str, trajectory=None, axes=(0, 2), size: int 
     with open(path, "w") as f:
         f.write("".join(parts))
     return path
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def write_png(path: str, rgb: np.ndarray, text: dict | None = None):
-    """An (H, W, 3) uint8 array as an 8-bit RGB PNG; `text`: Latin-1
-    key -> value pairs, one ``tEXt`` chunk each."""
-    h, w = rgb.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),  # filter type 0 per row
-                           np.ascontiguousarray(rgb, np.uint8).reshape(h, 3 * w)], axis=1)
-    out = [b"\x89PNG\r\n\x1a\n", _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))]
-    for key, value in (text or {}).items():
-        out.append(_chunk(b"tEXt", key.encode("latin-1") + b"\0" + value.encode("latin-1")))
-    out += [_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)), _chunk(b"IEND", b"")]
-    with open(path, "wb") as f:
-        f.write(b"".join(out))
 
 
 def render_frame_overlay(img, feats, matches=None, state_text: str = "", path=None):

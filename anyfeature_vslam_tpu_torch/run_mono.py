@@ -9,8 +9,8 @@ src/vslamlab_anyfeature_mono.cpp:47-109):
 Runs on the card unless ``device:cpu`` is given. ``sensor:rgbd
 bf:<baseline * fx>`` tracks a TUM RGB-D layout (rgb.txt + depth.txt) with
 its depth maps. ``vocabulary_folder:`` names a folder to take the
-feature's vocabulary from; without it the shipped one is used. Reading PNG
-frames needs PIL.
+feature's vocabulary from; without it the shipped one is used. PNG frames
+and depth maps are decoded with zlib (io/png.py), so PIL is not needed.
 """
 
 from __future__ import annotations

@@ -69,13 +69,16 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
      poses within 2e-3 where the global BA starts.
  11. the System with the JAX System's defaults (asynchronous mapping: each
      local BA issued on the mapping stream, folded at the next event) over
-     phase 8's 48 frames: phase 8's gates (0 resets, >= 45 tracked,
-     keyframe ATE < 5 cm), every local BA deferred; frames timed without a
-     device sync; where each fold landed, the events' waits on a solve,
-     host syncs per frame over its first 16 frames (left out of the times);
+     phase 8's 48 frames, run through the CLI from phase 20's PNG files
+     (one run serves both phases): phase 8's gates (0 resets, >= 45
+     tracked, keyframe ATE < 5 cm), every local BA deferred; frames timed
+     without a device sync; where each fold landed, the events' waits on a
+     solve, host syncs per frame over its first 16 frames (left out of the
+     times);
  12. threaded_mapping=True (the mapping worker thread, the tracker
      pipelined two frames deep: the bench's schedule) over the bench's 150
-     frames (rendered on 8 host processes): 0 resets, <= 5 lost frames,
+     frames (rendered on 8 host processes while the kernels build): 0
+     resets, <= 5 lost frames,
      keyframe ATE < 5 cm, shutdown() drains and stops the worker in time;
      host syncs per pipelined dispatch over frames 0-11, the device busy
      share over frames 12-15 (profiled), then frames/s, median and p90
@@ -164,12 +167,36 @@ relocalization and loop searches.
      / 1e-3); the sharded solves against bundle_adjust_two_stage /
      bundle_adjust (dense) by their final cost; each with its ms; then a System with use_mesh=True over phase 8's first 24 frames:
      0 resets, >= 22 tracked, keyframe ATE < 5 cm, every local BA sharded,
-     ms per event. The NCCL group is destroyed at the end.
+     ms per event. The NCCL group is destroyed at the end;
+ 20. the CLI from files, run in phase 11's place: the bench sequence's
+     first 48 frames (640x480) as the port's tools/make_synth_sequence
+     lays them out, the rendered frames written as PNGs (zlib) with the
+     tool's text files; the tool itself renders the first 4, which must
+     equal them byte for byte; load_gray of frame 13 equals the rendered
+     frame; run_mono (orb32, the JAX System's defaults) on the card over
+     the folder, scored by tools/evaluate_ate: 0 resets, >= 45 tracked,
+     keyframe ATE < 5 cm, PIL never imported; ms per frame, decode ms per
+     frame (and of an all-Paeth copy of frame 13), K1 / K2 / pack
+     launches (phase 11's);
+ 21. tools/create_vocabulary (orb32, every 6th of those frames, 8 frames,
+     branching 32, depth 2) on the card and on the CPU: at least 99.9% of
+     the descriptor rows equal; equal rows must give equal trees; frame
+     13's words under the card's tree equal on the card and the CPU; K1
+     launches;
+ 22. tools/train_patch_descriptor (synthetic corpus of 16 images, seed 0,
+     batch 512, 200 steps) on the card and its first 3 steps on the CPU:
+     the step-0 losses within 1e-5 relative, the loss at step 199 below
+     step 0's, the saved weights in an anyfeat_nonbin extractor give unit
+     descriptors (1e-5); ms per step, the suggested matchingTh;
+ 23. tools/bench_ba (--mesh 2, the problems cut 16-fold: one rank on one
+     card), tools/profile_detect and tools/profile_tracking over 8 frames,
+     each once, printing their lines.
 
 The launch counters are set to 0 before phases 5, 8, 9, 9b, 10, 11, 12,
 each family's System run in 13, phase 14's, phase 15's run and its
-retrace, phase 16's System run, phase 17's System run and phase 19's
-mesh System, and read after each. Every phase logs
+retrace, phase 16's System run, phase 17's System run, phase 19's
+mesh System and each device's run in 21, and read
+after each. Every phase logs
 its wall time. Prints the card (nvidia-smi
 name, power limit) first, then per-phase lines, one JSON line of kernel
 results (K1 and pack_bits: launches in phase 8, by phase and by family,
@@ -855,9 +882,9 @@ def loop_stage_line(system, label):
         f"{int(system.database.present.sum())} keyframes; closures {lc.n_loops_closed}")
 
 
-def system_phase(torch, device):
+def system_phase(torch, device, frames):
     """Phase 8: the System with its defaults over the first N_SYSTEM_FRAMES
-    frames at 640x480, with its checks. Returns (launches K1, K2, pack;
+    of the bench's `frames` at 640x480, with its checks. Returns (launches K1, K2, pack;
     K2 launches by search; K2 measured at the init and fusion inputs; the
     system, its scene and the Sim3 aligning its keyframes to the truth)."""
     from anyfeature_vslam_tpu_torch import perfcount
@@ -871,7 +898,8 @@ def system_phase(torch, device):
         c.launches = 0
     t0 = time.perf_counter()
     system, srows, sevents, ssc, k2_by, _ = system_run(torch, W, H, N_SYSTEM_FRAMES, device,
-                                                       record=recorded, async_mapping=False)
+                                                       record=recorded, frames=frames,
+                                                       async_mapping=False)
     sys_wall = time.perf_counter() - t0
     sys_k1, sys_k2, sys_pack = (c.launches for c in counters)
     for i, r in enumerate(srows):
@@ -955,7 +983,8 @@ def system_phase(torch, device):
     sync_sites = {}
     with sync_counter(torch, sync_sites):
         _, crows, cevents, _, _, _ = system_run(torch, W, H, N_SYNC_FRAMES, device,
-                                                sync_sites=sync_sites, async_mapping=False)
+                                                sync_sites=sync_sites, frames=frames,
+                                                async_mapping=False)
     tracked_syncs = [r["syncs"] for r in crows if r["state"] == "OK" and not r["events"]]
     log(f"[system syncs] first {N_SYNC_FRAMES} frames: {sum(sync_sites.values())} host syncs; "
         f"per keyframe event {[e['syncs'] for e in cevents]}; per frame without an event "
@@ -990,10 +1019,10 @@ RELOC_VIEWS = (20, 21, 22)  # re-rendered views at the poses of mapped frames
 MAX_RELOC_M = 0.05
 
 
-def reloc_phase(torch, device, system, sc, align):
+def reloc_phase(torch, device, system, sc, align, frames):
     """Phase 9: phase 8's System loses the camera to N_BLACKOUT uniform
     frames and must relocalize, within 3 frames, on views at the poses of
-    earlier mapped frames: at least one relocalization, the relocalized
+    earlier mapped frames (the bench's `frames`, rendered there): at least one relocalization, the relocalized
     camera centre within MAX_RELOC_M of the truth after phase 8's Sim3
     alignment. Counts set to 0 just before, read just after. Returns
     (launches K1, K2, pack; K2 by search; recorded search inputs)."""
@@ -1044,7 +1073,7 @@ def reloc_phase(torch, device, system, sc, align):
                 ts += 1 / 30.0
             state_after_blackout = tracker.state.name
             for f in RELOC_VIEWS:
-                rows.append((f"view of frame {f}", probe.frame(sc.render(f)[0], ts)))
+                rows.append((f"view of frame {f}", probe.frame(frames[f], ts)))
                 ts += 1 / 30.0
                 if rows[-1][1]["state"] == "OK":
                     break
@@ -1106,22 +1135,38 @@ def _render_loop_chunk(width, height, idx):
     return [(i, sc.render(i)) for i in idx]
 
 
-def render_loop_frames(width, height, idx):
-    """{i: uint8 frame i of the loop scene}, rendered on the host's cores
-    (one spawned process per core, at most 8; none touches the card)."""
+N_RENDER_PROCS = min(8, os.cpu_count() or 1)
+
+
+@contextlib.contextmanager
+def render_pool(pool=None):
+    """`pool`, or a new pool of spawned processes, one per host core (at
+    most 8; none touches the card), shut down on exit."""
+    if pool is not None:
+        yield pool
+        return
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    n_proc = min(8, os.cpu_count() or 1)
-    with ProcessPoolExecutor(n_proc, mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = pool.map(_render_loop_chunk, [width] * n_proc, [height] * n_proc,
-                         [idx[k::n_proc] for k in range(n_proc)])
+    with ProcessPoolExecutor(N_RENDER_PROCS,
+                             mp_context=multiprocessing.get_context("spawn")) as new:
+        yield new
+
+
+def render_loop_frames(width, height, idx, pool=None):
+    """{i: uint8 frame i of the loop scene}, rendered on the host's cores
+    (render_pool)."""
+    n_proc = N_RENDER_PROCS
+    with render_pool(pool) as workers:
+        parts = workers.map(_render_loop_chunk, [width] * n_proc, [height] * n_proc,
+                            [idx[k::n_proc] for k in range(n_proc)])
         return dict(p for part in parts for p in part)
 
 
-def loop_phase(torch, device):
+def loop_phase(torch, device, sc, frames):
     """Phase 10: the two-session merge of tests/test_loop_live.py, rendered
-    in memory (torch_slice_scene.LoopScene at LOOP_W x LOOP_H). Session A
+    in memory (`sc`, torch_slice_scene.LoopScene at LOOP_W x LOOP_H, and its
+    `frames`: render_loop_frames). Session A
     maps circle A and saves a checkpoint; session B loads it, boots a fresh
     component in circle B and re-enters A, where only a Sim3 loop closure
     can merge the two. Gates, the test's own: 0 resets, <= 5 lost frames,
@@ -1137,13 +1182,7 @@ def loop_phase(torch, device):
 
     from anyfeature_vslam_tpu_torch.io import evaluation
     from anyfeature_vslam_tpu_torch.system import System
-    from torch_slice_scene import LoopScene
 
-    t0 = time.perf_counter()
-    sc = LoopScene(LOOP_W, LOOP_H)
-    frames = render_loop_frames(LOOP_W, LOOP_H, list(sc.session_a) + list(sc.session_b))
-    log(f"[loop] rendered {len(frames)} frames {LOOP_W}x{LOOP_H} in "
-        f"{time.perf_counter() - t0:.1f} s")
     counters = _counters()
     recorded = {}
     torch.cuda.synchronize()
@@ -1295,17 +1334,14 @@ def _render_slice_chunk(width, height, idx):
     return [(i, sc.render(i)[0]) for i in idx]
 
 
-def render_slice_frames(width, height, n):
+def render_slice_frames(width, height, n, pool=None):
     """The first n uint8 frames of the bench sequence, rendered on the
-    host's cores (one spawned process per core, at most 8)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    n_proc = min(8, os.cpu_count() or 1)
+    host's cores (render_pool)."""
+    n_proc = N_RENDER_PROCS
     idx = list(range(n))
-    with ProcessPoolExecutor(n_proc, mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = pool.map(_render_slice_chunk, [width] * n_proc, [height] * n_proc,
-                         [idx[k::n_proc] for k in range(n_proc)])
+    with render_pool(pool) as workers:
+        parts = workers.map(_render_slice_chunk, [width] * n_proc, [height] * n_proc,
+                            [idx[k::n_proc] for k in range(n_proc)])
         got = dict(p for part in parts for p in part)
     return [got[i] for i in idx]
 
@@ -1320,76 +1356,6 @@ def _frame_stats(rows):
     ev = [r["ms"] for r in steady if r["events"]]
     med = (lambda v: statistics.median(v) if v else float("nan"))
     return med(plain), len(plain), med(ev), len(ev)
-
-
-def async_phase(torch, device, frames):
-    """Phase 11: the System with the JAX System's defaults (asynchronous
-    mapping: each local BA issued on the mapping stream and folded later)
-    over phase 8's 48 frames. Gates as phase 8's: 0 resets, >= 45 tracked
-    frames, keyframe ATE < 5 cm; K1 on every frame, K2 and pack launched,
-    every local BA deferred. Frames are timed without a device sync, so a
-    deferred solve overlaps the next frames. Counts set to 0 just before,
-    read just after. Returns (launches K1, K2, pack; K2 by search)."""
-    from anyfeature_vslam_tpu_torch import perfcount
-
-    counters = _counters()
-    torch.cuda.synchronize()
-    perfcount.reset()
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    sync_sites = {}
-    system, rows, events, sc, k2_by, probe = system_run(
-        torch, W, H, N_ASYNC_FRAMES, device, frames=frames, sync=False, sync_sites=sync_sites,
-        sync_frames=N_SYNC_FRAMES)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1, k2, pack = (c.launches for c in counters)
-    stats = system.tracker.stats
-    kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
-    plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
-    lm = system.local_mapper
-    log(f"[async] {N_ASYNC_FRAMES} frames {W}x{H} in {wall:.1f} s; tracked "
-        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}, "
-        f"reinitializations {stats['reinitializations']}; "
-        f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points; ATE "
-        f"(Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} m over {n_fr}")
-    log(f"[async] median ms per frame after frame {N_SYNC_FRAMES - 1} (the frames before "
-        f"count host syncs): without a keyframe event {plain_ms:.1f} "
-        f"({n_plain} frames), with one {ev_ms:.1f} ({n_ev} frames); {len(events)} events, "
-        f"median {statistics.median(e['ms'] for e in events) if events else float('nan'):.1f} "
-        f"ms (host, no device sync)")
-    for name, ts in lm.stage_times.items():
-        log(f"[async] event stage {name}: median {1e3 * statistics.median(ts):.2f} ms, max "
-            f"{1e3 * max(ts):.2f} ms over {len(ts)} events")
-    waits = lm.stage_times.get("fold_wait", [])
-    log(f"[async] folds landed by site {json.dumps(probe.folds)}; events waited on a solve's "
-        f"readiness {len(waits)} times, {1e3 * sum(waits):.2f} ms in all, median "
-        f"{1e3 * statistics.median(waits) if waits else float('nan'):.2f} ms")
-    ba_lines(lm.ba_log, "async", "local BA (issue ms)")
-    loop_stage_line(system, "async")
-    log(f"[async] launches: K1 {k1}, K2 {k2} (by search {json.dumps(k2_by)}), pack {pack}")
-    crows = [r for r in rows if r["sync_counted"]]
-    plain_syncs = [r["syncs"] for r in crows if r["state"] == "OK" and not r["events"]]
-    log(f"[async syncs] first {N_SYNC_FRAMES} frames: {sum(sync_sites.values())} host syncs; "
-        f"per frame without an event {plain_syncs}; per frame with one "
-        f"{[r['syncs'] for r in crows if r['events']]}")
-    for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[async syncs]   {n:5d}x  {site}")
-    fail = []
-    if stats["resets"] != 0:
-        fail.append(f"{stats['resets']} resets")
-    if stats["tracked_frames"] < MIN_SYSTEM_TRACKED:
-        fail.append(f"{stats['tracked_frames']} tracked frames")
-    if not kf_ate < MAX_ATE_M:
-        fail.append(f"keyframe ATE {kf_ate:.4f} m")
-    if not events or not lm.ba_log or not all(b["deferred"] for b in lm.ba_log):
-        fail.append("the local BAs were not deferred")
-    if min(r["k1"] for r in rows) < 1 or k2 < 1 or pack < 1:
-        fail.append("a kernel of the path was not launched")
-    if fail:
-        raise AssertionError(f"the asynchronous-mapping phase failed: {fail}")
-    return (k1, k2, pack), k2_by
 
 
 def _busy_share(torch, prof, wall_ms):
@@ -1898,7 +1864,7 @@ def _deactivate(tag, probe, system, img, ts, **frame_kw):
         raise AssertionError(f"[{tag}] only_tracking still set after deactivation")
 
 
-def mono_localization_phase(torch, device, system, sc, fid):
+def mono_localization_phase(torch, device, system, sc, fid, frames):
     """Phase 9b: localization mode on phase 8's System, relocalized at the
     view of frame `fid` in phase 9: the views of frames fid, fid - 1, ...
     retraced backwards (N_RETRACE frames, the staged path, no keyframe);
@@ -1908,7 +1874,7 @@ def mono_localization_phase(torch, device, system, sc, fid):
     (launches K1, K2, pack; K2 by search)."""
     counters = _counters()
     views = [fid - j for j in range(N_RETRACE)]
-    imgs = [sc.render(f)[0] for f in views]
+    imgs = [frames[f] for f in views]
     counts_before = (system.map.n_keyframes(), system.map.n_points())
     system.activate_localization_mode()
     torch.cuda.synchronize()
@@ -1999,20 +1965,16 @@ def _render_plane_chunk(kind, idx):
     return out
 
 
-def render_plane_frames():
+def render_plane_frames(pool=None):
     """Phase 15's RGB-D frames and localization leg, and phase 16's stereo
-    pairs, rendered on the host's cores (one spawned process per core, at
-    most 8)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    n_proc = min(8, os.cpu_count() or 1)
+    pairs, rendered on the host's cores (render_pool)."""
+    n_proc = N_RENDER_PROCS
     counts = {"rgbd": N_RGBD_FRAMES, "leg": len(leg_poses()), "stereo": N_STEREO_FRAMES}
     jobs = [(kind, list(range(n))[k::n_proc]) for kind, n in counts.items()
             for k in range(n_proc)]
     jobs = [j for j in jobs if j[1]]
-    with ProcessPoolExecutor(n_proc, mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = pool.map(_render_plane_chunk, *zip(*jobs))
+    with render_pool(pool) as workers:
+        parts = workers.map(_render_plane_chunk, *zip(*jobs))
         got = {(kind, i): v for part in parts for kind, i, v in part}
     return tuple([got[kind, i] for i in range(n)] for kind, n in counts.items())
 
@@ -2763,6 +2725,438 @@ def ba_layouts_phase(torch, device, problem, intrinsics, frames):
     return (k1, k2, pack), k2_by
 
 
+# ---------------------------------------------------------------- phases 20-23
+N_TOOL_FRAMES = 4  # frames make_synth_sequence renders itself in phase 20
+VOCAB_ARGS = ("feature:orb32", "sample_every:6", "max_frames:8")
+# the card's and the CPU's orb32 rows over those frames: 99.95% equal on
+# the card (PERF.md section 6); a faulty extraction gives far fewer
+MIN_VOCAB_AGREE = 0.999
+# learned48 training on the card, cut for the script's time limit: 200
+# steps (the tool's default 2000) on a 16-image corpus (default 160)
+TRAIN_ARGS = dict(sequence_path="synthetic", seed="0", batch="512", steps="200",
+                  n_corpus="16")
+N_TRAIN_CPU_STEPS = 3
+MAX_TRAIN_LOSS_REL = 1e-5
+MAX_DESC_NORM_ERR = 1e-5
+
+
+def _paeth_png(path, img):
+    """An 8-bit gray PNG of `img` whose every row uses the Paeth filter (the
+    slowest row to decode; io/png.write_png writes filter type 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.io import png
+
+    raw = img.astype(np.int64)
+    prior = np.vstack([np.zeros((1, raw.shape[1]), np.int64), raw[:-1]])
+    left = np.hstack([np.zeros((raw.shape[0], 1), np.int64), raw[:, :-1]])
+    upleft = np.hstack([np.zeros((raw.shape[0], 1), np.int64), prior[:, :-1]])
+    p = left + prior - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+    rows = np.hstack([np.full((raw.shape[0], 1), 4, np.uint8), ((raw - pred) % 256).astype(np.uint8)])
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", img.shape[1], img.shape[0],
+                                                           8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _run_tool(main, argv):
+    """A tool's main(argv) with its stdout captured and logged; returns
+    (exit code, printed lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    {line}")
+    return rc, lines
+
+
+def write_cli_sequence(root, frames):
+    """Phase 20's files: the bench sequence (make_synth_sequence's seed 3,
+    radius 0.8, revisit 0.2; 150 frames) cut to its first len(`frames`)
+    frames, written to root/seq as the tool lays it out: the rendered
+    `frames` through io/png.write_png, the text files through the tool's
+    poses_for and write_sequence_files. The tool itself writes the first
+    N_TOOL_FRAMES frames to root/tool; its PNGs must equal those written
+    here byte for byte and its text files must be the first lines of
+    these. Returns (root/seq, failures)."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.io import png
+    from anyfeature_vslam_tpu_torch.tools import make_synth_sequence as mss
+
+    seq, tool = os.path.join(root, "seq"), os.path.join(root, "tool")
+    t0 = time.perf_counter()
+    rc, _ = _run_tool(mss.main, [f"out_dir:{tool}", "n_frames:150",
+                                 f"max_frames:{N_TOOL_FRAMES}", f"width:{W}", f"height:{H}",
+                                 "revisit:0.2", "radius:0.8", "seed:3"])
+    t_tool = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(seq, "rgb"))
+    for i, img in enumerate(frames):
+        png.write_png(os.path.join(seq, f"rgb/{i:06d}.png"), np.ascontiguousarray(img))
+    mss.write_sequence_files(seq, mss.poses_for("circle", 150, 0.2, 0.8)[:len(frames)], 30.0,
+                             W, H)
+    t_write = time.perf_counter() - t0
+
+    def read(*parts):
+        with open(os.path.join(*parts), "rb") as f:
+            return f.read()
+
+    same_png = all(read(tool, f"rgb/{i:06d}.png") == read(seq, f"rgb/{i:06d}.png")
+                   for i in range(N_TOOL_FRAMES))
+    same_text = all(read(seq, name).startswith(read(tool, name).rstrip(b"\n"))
+                    for name in ("rgb.csv", "groundtruth.csv")) and \
+        read(seq, "calibration.yaml") == read(tool, "calibration.yaml")
+    log(f"[cli] make_synth_sequence rendered and wrote frames 0-{N_TOOL_FRAMES - 1} in "
+        f"{t_tool:.1f} s; the rendered bench frames written as its {len(frames)}-frame "
+        f"sequence in {t_write:.1f} s; its PNGs equal byte for byte: {same_png}, its text "
+        f"files the first lines: {same_text}")
+    fail = [] if rc == 0 else [f"make_synth_sequence exited {rc}"]
+    if not (same_png and same_text):
+        fail.append("the tool's files differ from the sequence written")
+    return seq, fail
+
+
+@contextlib.contextmanager
+def probed_run_sequence(torch, device, sync_sites, sync_frames):
+    """While active, the System that system.run_sequence builds runs under
+    a SystemProbe (sync=False): each track_monocular call is tracked
+    through probe.frame, host syncs counted into `sync_sites` over the
+    first `sync_frames` frames. Yields a dict whose "probe" and "rows"
+    (probe.frame's, with "sync_counted") fill in as the run goes."""
+    from anyfeature_vslam_tpu_torch import system as system_mod
+
+    base = system_mod.System
+    got = dict(rows=[])
+    probes = contextlib.ExitStack()
+
+    class Probed(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._in_probe = False
+            got["probe"] = probes.enter_context(
+                SystemProbe(torch, self, device, sync_sites=sync_sites, sync=False))
+
+        def track_monocular(self, img, ts, image_path=None):
+            if self._in_probe:  # probe.frame's own call
+                got["state"] = super().track_monocular(img, ts, image_path=image_path)
+                return got["state"]
+            counted = len(got["rows"]) < sync_frames
+            self._in_probe = True
+            try:
+                with sync_counter(torch, sync_sites) if counted else contextlib.nullcontext():
+                    row = got["probe"].frame(img, ts, image_path)
+            finally:
+                self._in_probe = False
+            got["rows"].append(dict(row, sync_counted=counted))
+            return got["state"]
+
+    system_mod.System = Probed
+    try:
+        with probes:
+            yield got
+    finally:
+        system_mod.System = base
+
+
+def cli_phase(torch, device, frames):
+    """Phases 11 and 20, one System run: run_mono.main (orb32, the JAX
+    System's defaults: asynchronous mapping, each local BA issued on the
+    mapping stream and folded later) on the card over the bench's first
+    N_ASYNC_FRAMES frames, read from PNG files (write_cli_sequence) by
+    io/png, with the System under a SystemProbe. Phase 20's checks:
+    load_gray of frame FIRST_TRACKED equals the rendered frame (and an
+    all-Paeth copy of it decodes equal), the port's evaluate_ate scores the
+    keyframe and frame trajectories, PIL is never imported. Phase 11's
+    readings: frames timed without a device sync (a deferred solve
+    overlaps the next frames), host syncs over the first N_SYNC_FRAMES,
+    where each fold landed. Gates: 0 resets, >= 45 tracked, keyframe ATE <
+    5 cm (the probe's and evaluate_ate's), every local BA deferred, K1 on
+    every frame, K2 and pack launched, the files equal, no PIL. Counts set
+    to 0 just before run_mono, read just after. Returns (the temporary
+    folder, the sequence path, launches (K1, K2, pack), K2 launches by
+    search)."""
+    import tempfile
+
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch import perfcount, run_mono
+    from anyfeature_vslam_tpu_torch.io import dataset
+    from anyfeature_vslam_tpu_torch.tools import evaluate_ate
+    from torch_slice_scene import FIRST_TRACKED, SliceScene
+
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "out")
+    seq, fail = write_cli_sequence(tmp.name, frames[:N_ASYNC_FRAMES])
+    paths = dataset.load_sequence(seq).image_paths
+    t0 = time.perf_counter()
+    decoded = [dataset.load_gray(p) for p in paths]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    same = np.array_equal(decoded[FIRST_TRACKED], frames[FIRST_TRACKED].astype(np.float32))
+    paeth = os.path.join(tmp.name, "paeth.png")
+    _paeth_png(paeth, frames[FIRST_TRACKED])
+    t0 = time.perf_counter()
+    paeth_img = dataset.load_gray(paeth)
+    paeth_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[cli] load_gray of frame {FIRST_TRACKED} equals the in-memory frame: {same}; decode "
+        f"{decode_ms:.3f} ms per frame (filter-0 rows, {len(paths)} frames, host), "
+        f"{paeth_ms:.3f} ms for frame {FIRST_TRACKED} with every row Paeth-filtered (equal: "
+        f"{np.array_equal(paeth_img, decoded[FIRST_TRACKED])})")
+    if not same or not np.array_equal(paeth_img, decoded[FIRST_TRACKED]):
+        fail.append("the decoded frame differs from the rendered one")
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    perfcount.reset()
+    for c in counters:
+        c.launches = 0
+    sync_sites = {}
+    t0 = time.perf_counter()
+    with probed_run_sequence(torch, device, sync_sites, N_SYNC_FRAMES) as got:
+        rc, lines = _run_tool(run_mono.main, [
+            f"sequence_path:{seq}", f"exp_folder:{out}", "exp_id:cli", "feature:orb32",
+            "verbose:0", "device:cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, pack = (c.launches for c in counters)
+    if rc != 0:
+        fail.append(f"run_mono exited {rc}")
+    probe, rows = got["probe"], got["rows"]
+    system, events, k2_by = probe.system, probe.events, probe.k2_by_label
+    stats = system.tracker.stats
+    kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, SliceScene(W, H))
+    plain_ms, n_plain, ev_ms, n_ev = _frame_stats(rows)
+    lm = system.local_mapper
+    log(f"[async] {len(rows)} frames {W}x{H} in {wall:.1f} s; tracked "
+        f"{stats['tracked_frames']}, lost {stats['lost_frames']}, resets {stats['resets']}, "
+        f"reinitializations {stats['reinitializations']}; "
+        f"{system.map.n_keyframes()} keyframes, {system.map.n_points()} points; ATE "
+        f"(Sim3-aligned) keyframes {kf_ate:.5f} m over {n_kf}, frames {fr_ate:.5f} m over {n_fr}")
+    log(f"[async] median ms per frame after frame {N_SYNC_FRAMES - 1} (the frames before "
+        f"count host syncs): without a keyframe event {plain_ms:.1f} "
+        f"({n_plain} frames), with one {ev_ms:.1f} ({n_ev} frames); {len(events)} events, "
+        f"median {statistics.median(e['ms'] for e in events) if events else float('nan'):.1f} "
+        f"ms (host, no device sync)")
+    for name, ts in lm.stage_times.items():
+        log(f"[async] event stage {name}: median {1e3 * statistics.median(ts):.2f} ms, max "
+            f"{1e3 * max(ts):.2f} ms over {len(ts)} events")
+    waits = lm.stage_times.get("fold_wait", [])
+    log(f"[async] folds landed by site {json.dumps(probe.folds)}; events waited on a solve's "
+        f"readiness {len(waits)} times, {1e3 * sum(waits):.2f} ms in all, median "
+        f"{1e3 * statistics.median(waits) if waits else float('nan'):.2f} ms")
+    ba_lines(lm.ba_log, "async", "local BA (issue ms)")
+    loop_stage_line(system, "async")
+    log(f"[async] launches: K1 {k1}, K2 {k2} (by search {json.dumps(k2_by)}), pack {pack}")
+    crows = [r for r in rows if r["sync_counted"]]
+    plain_syncs = [r["syncs"] for r in crows if r["state"] == "OK" and not r["events"]]
+    log(f"[async syncs] first {N_SYNC_FRAMES} frames: {sum(sync_sites.values())} host syncs; "
+        f"per frame without an event {plain_syncs}; per frame with one "
+        f"{[r['syncs'] for r in crows if r['events']]}")
+    for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[async syncs]   {n:5d}x  {site}")
+
+    scores = {}
+    gt = os.path.join(seq, "groundtruth.csv")
+    for what, name in (("keyframes", "cli_KeyFrameTrajectory.csv"),
+                       ("frames", "cli_FrameTrajectory_TUM.txt")):
+        _, lines_ate = _run_tool(evaluate_ate.main, [f"est:{os.path.join(out, name)}",
+                                                    f"gt:{gt}"])
+        scores[what] = json.loads(lines_ate[-1])
+    median = next((line for line in lines if line.startswith("median tracking time")), "")
+    log(f"[cli] run_mono over {len(rows)} PNG frames {W}x{H} on the card in {wall:.1f} s "
+        f"({wall * 1e3 / len(rows):.1f} ms per frame, the System's build included; {median}); "
+        f"evaluate_ate keyframes {scores['keyframes']}, frames {scores['frames']}")
+    log(f"[cli] decode {decode_ms:.3f} ms per frame against {wall * 1e3 / len(rows):.1f} ms "
+        f"per frame")
+    pil = "PIL" in sys.modules
+    log(f"[cli] PIL loaded: {pil}")
+    if len(rows) != N_ASYNC_FRAMES:
+        fail.append(f"{len(rows)} frames tracked of {N_ASYNC_FRAMES}")
+    if stats["resets"] != 0:
+        fail.append(f"{stats['resets']} resets")
+    if stats["tracked_frames"] < MIN_SYSTEM_TRACKED:
+        fail.append(f"{stats['tracked_frames']} tracked frames")
+    if not kf_ate < MAX_ATE_M or not scores["keyframes"]["ate_rmse"] < MAX_ATE_M:
+        fail.append(f"keyframe ATE {kf_ate:.4f} m, {scores['keyframes']['ate_rmse']} m")
+    if not events or not lm.ba_log or not all(b["deferred"] for b in lm.ba_log):
+        fail.append("the local BAs were not deferred")
+    if min(r["k1"] for r in rows) < 1 or k2 < 1 or pack < 1:
+        fail.append("a kernel of the path was not launched")
+    if pil:
+        fail.append("PIL was imported")
+    if fail:
+        raise AssertionError(f"the asynchronous CLI phase failed: {fail}")
+    return tmp, seq, (k1, k2, pack), k2_by
+
+
+def vocabulary_phase(torch, device, seq, frames):
+    """Phase 21: create_vocabulary (orb32, every 6th frame, 8 frames,
+    branching 32, depth 2) on phase 20's folder on the card and on the
+    CPU, each run's descriptor rows kept as the tool extracts them: at
+    least MIN_VOCAB_AGREE of the rows equal on the card and the CPU, and
+    where all are equal the trees (centroids and idf) are equal too; frame
+    FIRST_TRACKED's words under the card's tree on the card equal the
+    CPU's. Returns K1's launches in the card's run."""
+    import tempfile
+
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, make_extractor
+    from anyfeature_vslam_tpu_torch.place_recognition import vocab
+    from anyfeature_vslam_tpu_torch.tools import create_vocabulary
+    from torch_slice_scene import FIRST_TRACKED
+
+    fail = []
+    extract = create_vocabulary.extract_descriptors
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vocs, ms = {}, {}
+        counters = _counters()
+        for dev in ("cuda", "cpu"):
+            def keep(*a, _dev=dev, **kw):
+                out = extract(*a, **kw)
+                rows.setdefault(_dev, []).extend(out)
+                return out
+
+            for c in counters:
+                c.launches = 0
+            out = os.path.join(tmp, f"voc_{dev}.npz")
+            t0 = time.perf_counter()
+            create_vocabulary.extract_descriptors = keep
+            try:
+                rc, _ = _run_tool(create_vocabulary.main, [f"sequence_path:{seq}", f"out:{out}",
+                                                            f"device:{dev}", *VOCAB_ARGS])
+            finally:
+                create_vocabulary.extract_descriptors = extract
+            ms[dev] = (time.perf_counter() - t0) * 1e3
+            if dev == "cuda":
+                k1 = counters[0].launches
+            if rc != 0:
+                fail.append(f"create_vocabulary device:{dev} exited {rc}")
+            vocs[dev] = vocab.Vocabulary.load(out)
+    d_card, d_cpu = (np.concatenate(rows[dev]) for dev in ("cuda", "cpu"))
+    n_frames = len(rows["cuda"])
+    same_shape = d_card.shape == d_cpu.shape
+    share = float((d_card == d_cpu).all(axis=1).mean()) if same_shape and len(d_card) else 0.0
+    same_tree = (all(np.array_equal(x, y) for x, y in zip(vocs["cuda"].centroids,
+                                                          vocs["cpu"].centroids))
+                 and np.array_equal(vocs["cuda"].idf, vocs["cpu"].idf))
+    log(f"[vocabulary] orb32, {n_frames} frames: {len(d_card)} descriptors on the card, "
+        f"{len(d_cpu)} on the CPU, {100 * share:.2f}% of the rows equal (at least "
+        f"{100 * MIN_VOCAB_AGREE:.1f}% required); the trees ({vocs['cuda'].n_words} words) "
+        f"equal: {same_tree}; the tool took {ms['cuda']:.0f} ms (card) and {ms['cpu']:.0f} ms "
+        f"(CPU); K1 launches on the card {k1}")
+    if not share >= MIN_VOCAB_AGREE:
+        fail.append(f"{100 * share:.2f}% of the descriptor rows equal on the card and the CPU")
+    if share == 1.0 and not same_tree:
+        fail.append("equal descriptors gave different trees")
+    if k1 < n_frames:
+        fail.append(f"K1 launched {k1} times for {n_frames} frames")
+    cfg = ExtractorConfig.for_feature("orb32")
+    ext = make_extractor(cfg, H, W).to(device)
+    feats = ext(torch.from_numpy(frames[FIRST_TRACKED]).to(device).float())
+    w_card = vocab.transform_words(vocs["cuda"], feats["desc_bits"], feats["valid"])
+    w_cpu = vocab.transform_words(vocs["cuda"], feats["desc_bits"].cpu(), feats["valid"].cpu())
+    same_words = bool(torch.equal(w_card.cpu(), w_cpu))
+    log(f"[vocabulary] frame {FIRST_TRACKED}'s {int(feats['valid'].sum())} words under the "
+        f"card's tree: card equals CPU {same_words}")
+    if not same_words:
+        fail.append("frame words differ between the card and the CPU")
+    if fail:
+        raise AssertionError(f"the vocabulary phase failed: {fail}")
+    return k1
+
+
+def training_phase(torch, device, frames):
+    """Phase 22: train_patch_descriptor (sequence_path:synthetic, seed 0,
+    batch 512; TRAIN_ARGS' cuts) on the card, then its first
+    N_TRAIN_CPU_STEPS steps on the CPU: the step-0 losses within 1e-5
+    relative, the last step's loss below step 0's, and the saved weights
+    loaded through convert.learned48_from_numpy into an anyfeat_nonbin
+    extractor whose frame-FIRST_TRACKED descriptors have norm 1 +- 1e-5.
+    Prints ms per step and the suggested matchingTh."""
+    import tempfile
+
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch import convert
+    from anyfeature_vslam_tpu_torch.frontend.extractor import ExtractorConfig, make_extractor
+    from anyfeature_vslam_tpu_torch.tools import train_patch_descriptor
+    from torch_slice_scene import FIRST_TRACKED
+
+    fail = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "learned48.npz")
+        t0 = time.perf_counter()
+        card = train_patch_descriptor.train(dict(TRAIN_ARGS, out=out, device="cuda"),
+                                            log=lambda m, **k: log(f"    {m}"))
+        t_card = time.perf_counter() - t0
+        cpu = train_patch_descriptor.train(
+            dict(TRAIN_ARGS, steps=str(N_TRAIN_CPU_STEPS), out=os.path.join(tmp, "cpu.npz"),
+                 device="cpu"), log=lambda m, **k: None)
+        params = dict(np.load(out))
+    l_card, l_cpu = card.losses[0][1], cpu.losses[0][1]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    first, last = card.losses[0], card.losses[-1]
+    log(f"[training] learned48 on the card: {len(card.losses)} steps of "
+        f"{TRAIN_ARGS['steps']} taken in {t_card:.1f} s with the corpus; "
+        f"{card.ms_per_step:.2f} ms per step (pairs included); loss step {first[0]} "
+        f"{first[1]:.6f}, step {last[0]} {last[1]:.6f}; step-0 loss card {l_card:.8f} CPU "
+        f"{l_cpu:.8f} ({rel:.2e} relative; CPU steps 0-{cpu.losses[-1][0]}: "
+        f"{[round(l[1], 6) for l in cpu.losses]}); suggested matchingTh {card.threshold:.3f}")
+    if first[0] != 0 or cpu.losses[0][0] != 0 or not rel <= MAX_TRAIN_LOSS_REL:
+        fail.append(f"step-0 losses {l_card} (card) and {l_cpu} (CPU)")
+    if last[0] != int(TRAIN_ARGS["steps"]) - 1 or not last[1] < first[1]:
+        fail.append(f"the loss did not fall: {first} -> {last}")
+    ext = make_extractor(ExtractorConfig.for_feature("anyfeat_nonbin", N_FEATURES), H, W)
+    ext.mlp = convert.learned48_from_numpy(params, "cpu")
+    ext = ext.to(device)
+    feats = ext(torch.from_numpy(frames[FIRST_TRACKED]).to(device).float())
+    norms = torch.linalg.vector_norm(feats["desc_bits"][feats["valid"]], dim=1)
+    err = float((norms - 1).abs().max())
+    log(f"[training] the trained weights in an anyfeat_nonbin extractor: frame "
+        f"{FIRST_TRACKED}'s {len(norms)} descriptors, norms within {err:.2e} of 1")
+    if not err <= MAX_DESC_NORM_ERR or len(norms) == 0:
+        fail.append(f"descriptor norms {err}")
+    if fail:
+        raise AssertionError(f"the training phase failed: {fail}")
+    return card
+
+
+def tools_phase(torch, device):
+    """Phase 23: bench_ba (local- and global-BA problems with points and
+    observations cut 16-fold, --mesh 2: one rank on one card), then
+    profile_detect and profile_tracking over 8 frames, each once."""
+    from anyfeature_vslam_tpu_torch.tools import bench_ba, profile_detect, profile_tracking
+
+    fail = []
+    for name, main, argv in (
+            ("bench_ba", bench_ba.main, ["--mesh", "2", "--scale", "16"]),
+            ("profile_detect", profile_detect.main, ["n_frames:8", "device:cuda"]),
+            ("profile_tracking", profile_tracking.main, ["n_frames:8", "device:cuda"])):
+        t0 = time.perf_counter()
+        log(f"[tools] {name} {' '.join(argv)}:")
+        rc, _ = _run_tool(main, argv)
+        log(f"[tools] {name} exited {rc} in {time.perf_counter() - t0:.1f} s")
+        if rc != 0:
+            fail.append(f"{name} exited {rc}")
+    if fail:
+        raise AssertionError(f"the tools phase failed: {fail}")
+
+
 def main() -> int:
     import torch
 
@@ -2790,10 +3184,28 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 1 begins")
-    # ---- 1. build: one nvcc per source, all started together
+    # ---- the rendered scenes (the bench's frames, phase 10's loop scene,
+    # phases 15-16's plane scene), on the host's cores while the kernels
+    # build: every frame is ready before anything is timed
     from concurrent.futures import ThreadPoolExecutor
 
+    from torch_slice_scene import LoopScene
+
+    t_render = time.perf_counter()
+    loop_sc = LoopScene(LOOP_W, LOOP_H)
+    # one pool for the three scenes (three pools oversubscribe the cores)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = ProcessPoolExecutor(N_RENDER_PROCS, mp_context=multiprocessing.get_context("spawn"))
+    renders = ThreadPoolExecutor(3)
+    bench_job = renders.submit(render_slice_frames, W, H, N_THREADED_FRAMES, workers)
+    loop_job = renders.submit(render_loop_frames, LOOP_W, LOOP_H,
+                              list(loop_sc.session_a) + list(loop_sc.session_b), workers)
+    plane_job = renders.submit(render_plane_frames, workers)
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 1 begins")
+    # ---- 1. build: one nvcc per source, all started together
     names = ("fast_nms", "best_two")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -2806,11 +3218,17 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
 
-    # ---- scene (rendered on the host before anything is timed)
-    t0 = time.perf_counter()
+    # ---- scenes: the bench's frames serve every phase that tracks them
     sc = SliceScene(W, H)
-    frames = [sc.render(i)[0] for i in range(FIRST_TRACKED, FIRST_TRACKED + N_TRACKED)]
-    log(f"[scene] rendered {len(frames)} frames {W}x{H} in {time.perf_counter() - t0:.1f} s")
+    bench_frames, loop_frames = bench_job.result(), loop_job.result()
+    rgbd_frames, leg_frames, stereo_pairs = plane_job.result()
+    renders.shutdown()
+    workers.shutdown()
+    frames = bench_frames[FIRST_TRACKED:FIRST_TRACKED + N_TRACKED]
+    log(f"[scene] rendered the bench's {len(bench_frames)} frames, the loop scene's "
+        f"{len(loop_frames)}, {len(rgbd_frames)} + {len(leg_frames)} RGB-D frames and "
+        f"{len(stereo_pairs)} stereo pairs, {W}x{H}, in {time.perf_counter() - t_render:.1f} s "
+        f"(while the kernels built)")
     cfg = ExtractorConfig(n_features=N_FEATURES)
     ext = OrbExtractor(cfg, H, W).to(device)
     cam = convert.camera_from_numpy(SimpleNamespace(**sc.camera), device)
@@ -3109,7 +3527,7 @@ def main() -> int:
     for site, n in sorted(sync_sites.items(), key=lambda kv: -kv[1]):
         log(f"[syncs]   {n:4d}x  {site}")
 
-    n_prof = 3
+    n_prof = 1  # the frame's kernels repeat per frame; parsing more costs tens of seconds
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
         track_frames(torch, sc, cam, ext, state, frames[:n_prof], device)
@@ -3143,7 +3561,8 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 8 begins")
     # ---- 8. the System: two-view init, tracked frames, keyframe events
     t_phase = time.perf_counter()
-    (sys_k1, sys_k2, sys_pack), k2_by, k2_sys, (system, ssc, align) = system_phase(torch, device)
+    (sys_k1, sys_k2, sys_pack), k2_by, k2_sys, (system, ssc, align) = system_phase(
+        torch, device, bench_frames)
     k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_sys.values()])
     assert_no_jax()  # the System's modules are imported by now
     log(f"[phase 8] {time.perf_counter() - t_phase:.1f} s")
@@ -3152,21 +3571,21 @@ def main() -> int:
     # ---- 9. relocalization of phase 8's System
     t_phase = time.perf_counter()
     reloc_launches, reloc_by, reloc_rec, reloc_fid = reloc_phase(torch, device, system, ssc,
-                                                                 align)
+                                                                 align, bench_frames)
     log(f"[phase 9] {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 9b begins")
     # ---- 9b. localization mode on phase 8's System, retracing backwards
     t_phase = time.perf_counter()
     monoloc_launches, monoloc_by = mono_localization_phase(torch, device, system, ssc,
-                                                           reloc_fid)
+                                                           reloc_fid, bench_frames)
     del system
     log(f"[phase 9b] {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 10 begins")
     # ---- 10. the live loop closure: two sessions merged by a Sim3 closure
     t_phase = time.perf_counter()
-    loop_launches, loop_by, loop_rec = loop_phase(torch, device)
+    loop_launches, loop_by, loop_rec = loop_phase(torch, device, loop_sc, loop_frames)
     log(f"[phase 10] {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 10b begins")
@@ -3175,14 +3594,12 @@ def main() -> int:
     constructed_loop_phase(torch, device)
     log(f"[phase 10b] {time.perf_counter() - t_phase:.1f} s")
 
-    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 11 begins")
-    # ---- 11. the JAX System's defaults: asynchronous mapping
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phases 11 and 20 begin")
+    # ---- 11 and 20. the JAX System's defaults (asynchronous mapping)
+    # through the CLI, from PNG files: run_mono, evaluate_ate, no PIL
     t_phase = time.perf_counter()
-    bench_frames = render_slice_frames(W, H, N_THREADED_FRAMES)
-    log(f"[async] rendered the bench's {len(bench_frames)} frames {W}x{H} in "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    async_launches, async_by = async_phase(torch, device, bench_frames[:N_ASYNC_FRAMES])
-    log(f"[phase 11] {time.perf_counter() - t_phase:.1f} s")
+    cli_tmp, cli_seq, async_launches, async_by = cli_phase(torch, device, bench_frames)
+    log(f"[phases 11 and 20] {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 12 begins")
     # ---- 12. the bench's schedule: the mapping worker, the pipelined tracker
@@ -3240,9 +3657,6 @@ def main() -> int:
     # ---- 15. RGB-D: the instant map from depth, the staged tracker,
     # depth-minted keyframes; then localization mode
     t_phase = time.perf_counter()
-    rgbd_frames, leg_frames, stereo_pairs = render_plane_frames()
-    log(f"[rgbd] rendered {len(rgbd_frames)} + {len(leg_frames)} RGB-D frames and "
-        f"{len(stereo_pairs)} stereo pairs {W}x{H} in {time.perf_counter() - t_phase:.1f} s")
     (rgbd_launches, rgbd_by), (rgbdloc_launches, rgbdloc_by), k2_rgbd = rgbd_phase(
         torch, device, rgbd_frames, leg_frames)
     k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_rgbd.values()])
@@ -3278,6 +3692,26 @@ def main() -> int:
     mesh_launches, mesh_by = ba_layouts_phase(torch, device, last_ba, intrinsics,
                                               bench_frames[:N_MESH_FRAMES])
     log(f"[phase 19] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 21 begins")
+    # ---- 21. a vocabulary from phase 20's folder, on the card and the CPU
+    t_new = t_phase = time.perf_counter()
+    voc_k1 = vocabulary_phase(torch, device, cli_seq, bench_frames)
+    cli_tmp.cleanup()
+    log(f"[phase 21] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 22 begins")
+    # ---- 22. learned48 training on the card
+    t_phase = time.perf_counter()
+    training_phase(torch, device, bench_frames)
+    log(f"[phase 22] {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"[time] {time.perf_counter() - T_START:.1f} s: phase 23 begins")
+    # ---- 23. bench_ba, profile_detect, profile_tracking
+    t_phase = time.perf_counter()
+    tools_phase(torch, device)
+    log(f"[phase 23] {time.perf_counter() - t_phase:.1f} s; phases 21-23 "
+        f"{time.perf_counter() - t_new:.1f} s")
 
     # per tracked frame: K1 over the 8 levels; pack_bits at frame 13's
     # keypoints; K2 once per search: the tracked frame's searches (frame
@@ -3331,7 +3765,8 @@ def main() -> int:
          "source": "anyfeature_vslam_tpu_torch/csrc/fast_nms.cu",
          "replaces": "anyfeature_vslam_tpu/frontend/pallas_fast.py:105",
          "launches": sys_k1, "launches_per_frame_system": sys_k1 / N_SYSTEM_FRAMES,
-         "launches_by_phase": {k: v[0] for k, v in launches_by_phase.items()},
+         "launches_by_phase": dict({k: v[0] for k, v in launches_by_phase.items()},
+                                   vocabulary=voc_k1),
          "launches_by_family": {f: r["k1"] for f, r in fam.items()},
          "launches_tracked_frame": k1_launches, "launches_per_frame": k1_launches / n_frames,
          "max_abs_err": k1_err, "ms": k1_ms, "eager_ms": k1_ms, "graph_ms": k1_graph_ms,

@@ -280,7 +280,10 @@ def test_port_imports_neither_jax_nor_pil():
         "          'ops.pnp', 'ops.sim3', 'ops.pose_graph', 'frontend.scalespace',\n"
         "          'frontend.dog', 'frontend.graddesc', 'io.precomputed',\n"
         "          'place_recognition.dbow2_io', 'io.viewer', 'parallel.sharded_ba',\n"
-        "          'parallel.point_sharded_ba'):\n"
+        "          'parallel.point_sharded_ba', 'io.png', 'tools.evaluate_ate',\n"
+        "          'tools.make_synth_sequence', 'tools.create_vocabulary',\n"
+        "          'tools.train_patch_descriptor', 'tools.bench_ba', 'tools.profile_detect',\n"
+        "          'tools.profile_tracking'):\n"
         "    assert 'anyfeature_vslam_tpu_torch.' + m in mods, (m, mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'PIL', 'anyfeature_vslam_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -291,6 +294,50 @@ def test_port_imports_neither_jax_nor_pil():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+def test_port_ships_the_learned48_weights():
+    """The port's learned48.npz lies in the port and equals the JAX
+    package's file array for array."""
+    from anyfeature_vslam_tpu.frontend import learned48 as jl48
+    from anyfeature_vslam_tpu_torch.frontend import learned48 as tl48
+
+    port_dir = os.path.join(ROOT, "anyfeature_vslam_tpu_torch")
+    assert os.path.commonpath([tl48.WEIGHTS_PATH, port_dir]) == port_dir
+    got, want = tl48.load_weights(), jl48.load_weights()
+    assert set(got) == set(want) == {"w1", "b1", "w2", "b2", "w3", "b3"}
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+
+
+def _code_strings(path):
+    """The string constants of a module that are not docstrings."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_no_port_module_names_a_jax_package_path():
+    """No module of the port builds a path into the JAX package: no string
+    in its code (docstrings aside) names the folder anyfeature_vslam_tpu/ or
+    is that folder's name as a path segment."""
+    port_dir = os.path.join(ROOT, "anyfeature_vslam_tpu_torch")
+    bad = []
+    for base, _, files in os.walk(port_dir):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(base, name)
+                bad += [(os.path.relpath(path, ROOT), s) for s in _code_strings(path)
+                        if "anyfeature_vslam_tpu/" in s or s == "anyfeature_vslam_tpu"]
+    assert not bad, bad
 
 
 # --------------------------------------------- host copies: map, io, counters
