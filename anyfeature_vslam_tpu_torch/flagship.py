@@ -2,6 +2,8 @@
 
 ``tracking_step``: orb32 extraction (K1 on every level) -> one guided
 search of the previous frame's map points (K2) -> motion-only pose LM.
+``tracking_scan``: the step over a stack of frames, each started from the
+pose the one before found.
 ``entry(device="cuda")`` mirrors ``__graft_entry__.entry()``: the step at
 640x480 with 1000 features, and example arguments on ``device``.
 """
@@ -41,6 +43,21 @@ def tracking_step(image, prev_bits, prev_uv_proj, prev_size, prev_valid, pts3d, 
     pose, _, n_in = pose_opt.pose_optimize(
         t_init, pts3d, uv_obs, inv_s2, res["valid"] & prev_valid, fx, fy, cx, cy)
     return pose, n_in, feats
+
+
+def tracking_scan(images, prev_bits, prev_uv_proj, prev_size, prev_valid, pts3d, t_init,
+                  fx, fy, cx, cy, extractor: FeatureExtractor):
+    """tracking_step over images (N, H, W), frame k + 1 starting from frame
+    k's optimized pose (the motion-model chain of reference
+    Tracking::TrackWithMotionModel, src/Tracking.cc:729). Returns (poses
+    (N, 4, 4), n_inliers (N,))."""
+    pose, poses, n_inliers = t_init, [], []
+    for image in images:
+        pose, n_in, _ = tracking_step(image, prev_bits, prev_uv_proj, prev_size, prev_valid,
+                                      pts3d, pose, fx, fy, cx, cy, extractor)
+        poses.append(pose)
+        n_inliers.append(torch.as_tensor(n_in, device=pose.device))
+    return torch.stack(poses), torch.stack(n_inliers)
 
 
 def make_example(height: int = 480, width: int = 640, n_pts: int = 512, seed: int = 0):

@@ -75,3 +75,11 @@ def describe_from_flat(flat, angle, valid, p1, p2):
     i2 = torch.gather(q, 1, p2[step])
     bits = (i2.to(torch.float32) - i1.to(torch.float32)) > 0
     return (bits & valid[:, None]).to(torch.uint8)
+
+
+def unpack_bits(desc_packed):
+    """(N, n_bits / 8) uint8 -> (N, n_bits) uint8 bits, least significant
+    first: the inverse of the descriptors' packing."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=desc_packed.device)
+    bits = (desc_packed[..., None] >> shifts) & 1
+    return bits.reshape(desc_packed.shape[0], -1)

@@ -17,6 +17,10 @@ other bit depths raise ``ValueError``. ``to_rgb`` is PIL's
 
 ``write_png`` writes an (H, W) uint8 array as 8-bit gray or an (H, W, 3)
 one as 8-bit RGB, every row with filter type 0 (None).
+
+The row filters are undone by the host library (``native.unfilter``,
+csrc/slam_native.cpp); ``unfilter_plain`` is its numpy / Python twin, which
+the tests hold it against.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .. import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -76,9 +82,16 @@ def _average_row(line: list, prior: list, bpp: int) -> list:
 
 def unfilter(raw: bytes, height: int, stride: int, bpp: int, path: str = "") -> np.ndarray:
     """The (height, stride) uint8 scanlines of a decompressed IDAT stream,
-    each row's filter (None, Sub, Up, Average, Paeth) undone. None, Sub and
-    Up are numpy operations on the row; Average and Paeth depend on the
-    reconstructed byte to the left and run as a loop over the row."""
+    each row's filter (None, Sub, Up, Average, Paeth) undone by the host
+    library; ValueError with `path` for data that is too short or an
+    unknown filter type."""
+    return native.unfilter(raw, height, stride, bpp, path)
+
+
+def unfilter_plain(raw: bytes, height: int, stride: int, bpp: int, path: str = "") -> np.ndarray:
+    """unfilter's plain twin. None, Sub and Up are numpy operations on the
+    row; Average and Paeth depend on the reconstructed byte to the left and
+    run as a Python loop over the row."""
     buf = np.frombuffer(raw, np.uint8)
     if buf.size < height * (stride + 1):
         raise ValueError(f"{path}: image data too short")

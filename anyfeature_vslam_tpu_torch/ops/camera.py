@@ -46,13 +46,35 @@ class CameraParams(NamedTuple):
             torch.stack([z, z, o]),
         ])
 
+    @property
+    def has_distortion(self) -> bool:
+        """Whether any distortion coefficient is non-zero (reads the
+        coefficients to the host)."""
+        coeffs = torch.stack([self.k1, self.k2, self.p1, self.p2, self.k3])
+        return bool((coeffs.abs() > 0).any())
 
-def project(cam: CameraParams, pts_cam):
-    """Camera-frame points (..., 3) -> undistorted pixel coords (..., 2)
-    and depth (...)."""
+
+def distort_normalized(cam: CameraParams, xn):
+    """Radial-tangential distortion of normalized coords (..., 2)."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    r4 = r2 * r2
+    r6 = r4 * r2
+    radial = 1.0 + cam.k1 * r2 + cam.k2 * r4 + cam.k3 * r6
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
+def project(cam: CameraParams, pts_cam, distort: bool = False):
+    """Camera-frame points (..., 3) -> pixel coords (..., 2) and depth
+    (...). The SLAM works in undistorted pixels (the default);
+    distort=True applies the lens model first."""
     z = pts_cam[..., 2]
     inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
     xn = pts_cam[..., :2] * inv_z[..., None]
+    if distort:
+        xn = distort_normalized(cam, xn)
     return torch.stack([cam.fx * xn[..., 0] + cam.cx, cam.fy * xn[..., 1] + cam.cy], -1), z
 
 
@@ -82,3 +104,10 @@ def undistorted_bounds(cam: CameraParams):
     )
     und = undistort_points(cam, corners)
     return und[:, 0].min(), und[:, 0].max(), und[:, 1].min(), und[:, 1].max()
+
+
+def in_image(uv, bounds, margin: float = 0.0):
+    """Mask of (..., 2) pixel coords inside the undistorted bounds."""
+    min_x, max_x, min_y, max_y = bounds
+    return ((uv[..., 0] >= min_x + margin) & (uv[..., 0] < max_x - margin)
+            & (uv[..., 1] >= min_y + margin) & (uv[..., 1] < max_y - margin))

@@ -91,6 +91,29 @@ def rotation_consistency(angle_q, angle_c, match_idx, match_valid, keep_bins: in
     return match_valid & in_top
 
 
+def window_mask(xy_q, xy_c, radius):
+    """(N, 2), (M, 2), (N,) or scalar -> (N, M) mask of candidates within a
+    square search window (the reference's grid searches are square)."""
+    dx = torch.abs(xy_q[:, None, 0] - xy_c[None, :, 0])
+    dy = torch.abs(xy_q[:, None, 1] - xy_c[None, :, 1])
+    r = torch.as_tensor(radius, dtype=torch.float32, device=xy_q.device)
+    r = torch.broadcast_to(r, (xy_q.shape[0],))
+    return (dx <= r[:, None]) & (dy <= r[:, None])
+
+
+def octave_band_mask(oct_q, oct_c, min_delta: int, max_delta: int):
+    """Candidate octave within [oct_q + min_delta, oct_q + max_delta]."""
+    d = oct_c[None, :] - oct_q[:, None]
+    return (d >= min_delta) & (d <= max_delta)
+
+
+def size_band_mask(size_pred, size_c, lo: float = 1.0 / 1.5, hi: float = 1.5):
+    """Candidate normalized size within a multiplicative band of the
+    prediction (the reference gates candidates by predicted size)."""
+    ratio = size_c[None, :] / torch.clamp(size_pred[:, None], min=1e-6)
+    return (ratio >= lo) & (ratio <= hi)
+
+
 def finish_match(best, best_idx, second, n_cand: int, match_th, ratio=None,
                  angle_q=None, angle_c=None, unique: bool = True, ratio_mask=None):
     """Acceptance tests on best/second-best results: distance threshold,

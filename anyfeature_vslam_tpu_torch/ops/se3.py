@@ -129,6 +129,11 @@ def se3_inverse(t_mat):
     return rt_to_mat(rt, -(rt @ t[..., None])[..., 0])
 
 
+def transform_points(t_mat, pts):
+    """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
+    return pts @ t_mat[..., :3, :3].transpose(-1, -2) + t_mat[..., None, :3, 3]
+
+
 def quat_to_rot(q):
     """(..., 4) quaternion (x, y, z, w) -> (..., 3, 3). Normalizes q."""
     q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
@@ -174,10 +179,20 @@ def rot_to_quat(r):
 # --------------------------------------------------------------------- Sim3
 
 
+def sim3_to_mat(r, t, s):
+    """(..., 3, 3), (..., 3), (...,) -> (..., 4, 4) with sR in the top block."""
+    return rt_to_mat(r * s[..., None, None], t)
+
+
 def sim3_inverse(r, t, s):
     rt = r.transpose(-1, -2)
     s_inv = 1.0 / s
     return rt, -(s_inv[..., None] * (rt @ t[..., None])[..., 0]), s_inv
+
+
+def sim3_transform(r, t, s, pts):
+    """Apply Sim3 (s R x + t) to (..., N, 3)."""
+    return s[..., None, None] * (pts @ r.transpose(-1, -2)) + t[..., None, :]
 
 
 def sim3_compose(a, b):

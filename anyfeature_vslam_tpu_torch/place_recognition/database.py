@@ -17,9 +17,10 @@ word ids). Selection semantics:
   relocalization candidates (KeyFrameDatabase.cc:199-309): the same without
     the covisibility exclusion and minScore gate, ordered by score.
 
-``dispatch_bow`` issues the descent and returns its readiness probe
-without waiting (the threaded loop stage folds it one keyframe later);
-``compute_bow`` waits on it.
+Covisibility groups come from one pass of the host library's
+``native.covisibility_matrix``. ``dispatch_bow`` issues the descent and
+returns its readiness probe without waiting (the threaded loop stage
+folds it one keyframe later); ``compute_bow`` waits on it.
 """
 
 from __future__ import annotations
@@ -28,30 +29,8 @@ import numpy as np
 import torch
 
 from .. import streams
+from ..native import covisibility_matrix
 from . import vocab as vocab_mod
-
-
-def covisibility_matrix(kf_matches, kf_valid, max_pt: int):
-    """(K, K) int32 shared-observation counts between valid keyframes: for
-    each point, every pair of its observations adds one to both keyframes'
-    entries (the JAX package's native covisibility_matrix; the diagonal
-    counts a keyframe's own repeated observations)."""
-    k = kf_matches.shape[0]
-    out = np.zeros((k, k), np.int32)
-    kfs = np.nonzero(kf_valid)[0]
-    if len(kfs) == 0:
-        return out
-    m = kf_matches[kfs]
-    ri, ci = np.nonzero((m >= 0) & (m < max_pt))
-    if len(ri) == 0:
-        return out
-    pts, col = np.unique(m[ri, ci], return_inverse=True)
-    counts = np.zeros((len(kfs), len(pts)), np.float64)
-    np.add.at(counts, (ri, col), 1.0)
-    w = counts @ counts.T
-    w[np.diag_indices(len(kfs))] -= counts.sum(1)
-    out[np.ix_(kfs, kfs)] = np.rint(w).astype(np.int32)
-    return out
 
 
 class KeyFrameDatabase:

@@ -8,14 +8,12 @@ the per-keyframe ``kf_matches`` array (keypoint slot -> point id or -1),
 from which observations, covisibility and BA COO arrays are derived.
 
 Host arrays, as in the JAX package; what consumers need on the device they
-gather through ``mirror()`` (slam/device_map.py). The JAX package runs
-covisibility, observation counts and point statistics through its ctypes
-library (native/slam_native.cpp) when it can; here those are vectorized
-numpy functions with the native kernels' semantics (first minimum median
-for the distinctive descriptor, the reference observation's scale band
-with maxKeyPtSize 3.58318). Checkpoints (``save``/``load``) write and read
-the JAX package's file format: a map saved by either package loads in the
-other.
+gather through ``mirror()`` (slam/device_map.py). Observation counts,
+covisibility weights and point statistics run in the host library
+(``native.py``, csrc/slam_native.cpp) where the JAX package runs its
+native kernels; the stereo-weighted count stays numpy, as there.
+Checkpoints (``save``/``load``) write and read the JAX package's file
+format: a map saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -24,32 +22,7 @@ import ast
 
 import numpy as np
 
-_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
-_MAX_KEYPT_SIZE = np.float32(3.58318)  # 1.2^7, as native/slam_native.cpp
-
-
-def _covisibility_weights(kf_matches, kf_valid, target: int, max_pt: int):
-    """(K,) shared-point counts of every valid keyframe with `target`."""
-    mine = kf_matches[target]
-    mask = np.zeros(max_pt, bool)
-    mask[mine[mine >= 0]] = True
-    rows = np.nonzero(kf_valid)[0]
-    m = kf_matches[rows]
-    w = np.zeros(kf_matches.shape[0], np.int64)
-    w[rows] = ((m >= 0) & mask[np.maximum(m, 0)]).sum(1)
-    w[target] = 0
-    return w
-
-
-def _pairwise_distances(desc):
-    """(n, O, D) descriptors -> (n, O, O) distances: Hamming for {0,1}
-    uint8 bit planes, squared L2 otherwise."""
-    if desc.dtype == np.uint8:
-        packed = np.packbits(desc, axis=-1)
-        x = packed[:, :, None, :] ^ packed[:, None, :, :]
-        return _POPCOUNT8[x].sum(-1).astype(np.float32)
-    diff = desc[:, :, None, :] - desc[:, None, :, :]
-    return (diff * diff).sum(-1, dtype=np.float32)
+from .. import native
 
 
 class SlamMap:
@@ -438,19 +411,20 @@ class SlamMap:
         key = (self.rev, stereo_weighted)
         if cache is not None and cache[0] == key:
             return cache[1]
-        kfs = self.keyframe_ids()
-        m = self.kf_matches[kfs]
-        sel = m >= 0
-        w = None
         if stereo_weighted:
+            kfs = self.keyframe_ids()
+            m = self.kf_matches[kfs]
+            sel = m >= 0
             w = 1 + (self.kf_depth[kfs][sel] > 0).astype(np.int64)
-        counts = np.bincount(m[sel], weights=w, minlength=self.max_pt).astype(np.int64)
+            counts = np.bincount(m[sel], weights=w, minlength=self.max_pt).astype(np.int64)
+        else:
+            counts = native.point_obs_counts(self.kf_matches, self.kf_valid, self.max_pt)
         self._obs_counts_cache = (key, counts)
         return counts
 
     def covisibility_weights(self, kf: int):
         """(max_kf,) number of map points shared with `kf`."""
-        return _covisibility_weights(self.kf_matches, self.kf_valid, int(kf), self.max_pt)
+        return native.covisibility_weights(self.kf_matches, self.kf_valid, int(kf), self.max_pt)
 
     def covisible_keyframes(self, kf: int, min_weight: int = 15, max_n: int | None = None):
         w = self.covisibility_weights(kf)
@@ -460,6 +434,17 @@ class SlamMap:
         if max_n is not None:
             ids = ids[:max_n]
         return ids, w
+
+    def kf_centers(self):
+        """(max_kf, 3) float32 camera centres of the valid keyframes, 0
+        elsewhere."""
+        centers = np.zeros((self.max_kf, 3), np.float32)
+        live = self.keyframe_ids()
+        if len(live):
+            r = self.kf_pose[live, :3, :3]
+            t = self.kf_pose[live, :3, 3]
+            centers[live] = -np.einsum("kij,ki->kj", r, t)
+        return centers
 
     def update_point_stats(self, pt_ids=None):
         """Recompute distinctive descriptor, mean normal and scale band for
@@ -471,62 +456,10 @@ class SlamMap:
         pt_ids = np.unique(np.asarray(pt_ids, np.int64))
         if len(pt_ids) == 0:
             return
-        kf_centers = np.zeros((self.max_kf, 3), np.float32)
-        live = self.keyframe_ids()
-        if len(live):
-            r = self.kf_pose[live, :3, :3]
-            t = self.kf_pose[live, :3, 3]
-            kf_centers[live] = -np.einsum("kij,ki->kj", r, t)
-        # observations of the selected points, grouped by point in
-        # (keyframe, slot) order
-        lut = np.full(self.max_pt, -1, np.int64)
-        lut[pt_ids] = np.arange(len(pt_ids))
-        m = self.kf_matches[live]
-        ki, oslot = np.nonzero((m >= 0) & (lut[np.maximum(m, 0)] >= 0))
-        okf = live[ki]
-        opl = lut[m[ki, oslot]]
-        order = np.argsort(opl, kind="stable")
-        okf, oslot, opl = okf[order], oslot[order], opl[order]
-        n_p = len(pt_ids)
-        counts = np.bincount(opl, minlength=n_p)
-        starts = np.cumsum(counts) - counts
-        rank = np.arange(len(opl)) - starts[opl]
-
-        # distinctive descriptor: the observation with the smallest median
-        # distance to the others (sorted row element (O-1)/2, first minimum)
-        best = np.zeros(n_p, np.int64)
-        for o in np.unique(counts[counts > 1]):
-            sel = np.nonzero(counts == o)[0]
-            idx = starts[sel][:, None] + np.arange(o)
-            d = _pairwise_distances(self.kf_desc_bits[okf[idx], oslot[idx]])
-            med = np.sort(d, axis=-1)[:, :, (o - 1) // 2]
-            best[sel] = np.argmin(med, axis=1)
-        has = np.nonzero(counts > 0)[0]
-        pts = pt_ids[has]
-        src = starts[has] + best[has]
-        self.pt_desc_bits[pts] = self.kf_desc_bits[okf[src], oslot[src]]
-
-        # mean viewing direction
-        pos = self.pt_pos[pt_ids[opl]]
-        v = pos - kf_centers[okf]
-        nrm = np.maximum(np.sqrt((v * v).sum(-1)), np.float32(1e-9))
-        unit = v / nrm[:, None]
-        sums = np.stack([np.bincount(opl, weights=unit[:, c], minlength=n_p) for c in range(3)], -1)
-        inv = (np.float32(1.0) / counts[has].astype(np.float32))[:, None]
-        self.pt_normal[pts] = sums[has].astype(np.float32) * inv
-
-        # scale band from the reference keyframe's observation, else the first
-        is_ref = okf == self.pt_ref_kf[pt_ids[opl]]
-        big = np.iinfo(np.int64).max
-        ref_rank = np.full(n_p, big, np.int64)
-        np.minimum.at(ref_rank, opl[is_ref], rank[is_ref])
-        ref_rank = np.where(ref_rank == big, 0, ref_rank)
-        ro = starts[has] + ref_rank[has]
-        dv = self.pt_pos[pts] - kf_centers[okf[ro]]
-        dist = np.sqrt((dv * dv).sum(-1)).astype(np.float32)
-        size = self.kf_size[okf[ro], oslot[ro]]
-        self.pt_ref_size[pts] = size
-        self.pt_ref_dist[pts] = dist
-        self.pt_max_dist[pts] = np.float32(1.2) * dist * size
-        self.pt_min_dist[pts] = np.float32(0.8) * dist * size / _MAX_KEYPT_SIZE
+        native.update_point_stats(
+            self.kf_matches, self.kf_valid, self.kf_desc_bits, self.kf_size, self.kf_centers(),
+            pt_ids, self.pt_pos, self.pt_ref_kf, self.pt_desc_bits, self.pt_normal,
+            self.pt_ref_size, self.pt_ref_dist, self.pt_min_dist, self.pt_max_dist)
+        # mark after the write: a mirror sync that cleared the flag before
+        # it would leave these rows stale
         self.pt_dirty[pt_ids] = True

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import streams
+from . import native, streams
 from .convert import camera_from_numpy
 from .frontend.extractor import (FEATURE_REGISTRY, ExtractorConfig, descriptor_dim,
                                  descriptor_dtype)
@@ -626,10 +626,13 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
     System's worker-thread schedule. sensor="rgbd" reads a TUM RGB-D
     layout (rgb.txt + depth.txt, dataset.load_sequence_rgbd) and tracks
     each image with its depth map (System.track_rgbd; bf = baseline * fx).
-    On the card a monocular run reads the next frame's image and starts
-    its upload (pinned, non_blocking, on the tracker's stream) before the
-    current frame is tracked (not for precomputed features, which the
-    tracker reads from the files beside each image)."""
+    Images are read ahead on a reader thread (native.FrameLoader, as the
+    JAX package's run_sequence; ``system.frame_loader`` keeps its decode and
+    wait times); a depth map is read on this thread when its frame is
+    tracked. On the card a monocular run takes the next frame's image and
+    starts its upload (pinned, non_blocking, on the tracker's stream)
+    before the current frame is tracked (not for precomputed features,
+    which the tracker reads from the files beside each image)."""
     if sensor == "rgbd":
         seq = dataset.load_sequence_rgbd(sequence_path, calibration_yaml=calibration_yaml)
     else:
@@ -645,34 +648,40 @@ def run_sequence(sequence_path: str, feature: str = "orb32", out_dir: str | None
     # precomputed features are read from files: no image upload to overlap
     prefetch = (system.device.type == "cuda" and sensor == "monocular"
                 and not system.tracker.precomputed)
+    loader = system.frame_loader = native.FrameLoader(seq.image_paths[:n], seq.camera.height,
+                                                      seq.camera.width)
 
     def load(i):
-        img = dataset.load_gray(seq.image_paths[i])
+        img = loader.get(i)
         if not prefetch:
             return img
         with streams.use(system._track_stream):
             return torch.from_numpy(image_uint8(img)).pin_memory().to(system.device,
                                                                        non_blocking=True)
 
-    t_start = time.perf_counter()
-    nxt = load(0) if n else None
-    for i in range(n):
-        if pace and i > 0:
-            lag = seq.timestamps[i] - seq.timestamps[0] - (time.perf_counter() - t_start)
-            if lag > 0:
-                time.sleep(lag)
-        img = nxt
-        if i + 1 < n:
-            nxt = load(i + 1)
-        if sensor == "rgbd":
-            depth = dataset.load_depth(seq.depth_paths[i], seq.depth_factor)
-            state = system.track_rgbd(img, depth, seq.timestamps[i])
-        else:
-            state = system.track_monocular(img, seq.timestamps[i],
-                                           image_path=seq.image_paths[i])
-        if verbose:
-            print(f"frame {i}/{n} state={state.name} kfs={system.map.n_keyframes()} "
-                  f"pts={system.map.n_points()} inliers={system.tracker.n_inliers}", flush=True)
+    try:
+        t_start = time.perf_counter()
+        nxt = load(0) if n else None
+        for i in range(n):
+            if pace and i > 0:
+                lag = seq.timestamps[i] - seq.timestamps[0] - (time.perf_counter() - t_start)
+                if lag > 0:
+                    time.sleep(lag)
+            img = nxt
+            if i + 1 < n:
+                nxt = load(i + 1)
+            if sensor == "rgbd":
+                depth = dataset.load_depth(seq.depth_paths[i], seq.depth_factor)
+                state = system.track_rgbd(img, depth, seq.timestamps[i])
+            else:
+                state = system.track_monocular(img, seq.timestamps[i],
+                                               image_path=seq.image_paths[i])
+            if verbose:
+                print(f"frame {i}/{n} state={state.name} kfs={system.map.n_keyframes()} "
+                      f"pts={system.map.n_points()} inliers={system.tracker.n_inliers}",
+                      flush=True)
+    finally:
+        loader.close()
     if out_dir is not None:
         system.save_outputs(out_dir, exp_id)
     return system

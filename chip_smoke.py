@@ -8,7 +8,8 @@ its main path, the orb32 tracked frame at 640x480 with 1000 features and a
 4096-row local-map block:
 
   1. builds the hand-written CUDA kernels from csrc/ with nvcc, one nvcc
-     per source, started together;
+     per source, and the host library (csrc/slam_native.cpp, the host C++
+     compiler), all started together;
   2. K1 (FAST + NMS) on all 8 pyramid levels of a rendered frame, in one
      launch, against its plain PyTorch twin: bit-exact;
   3. pack_bits at every binary width and K2 (masked best/second) on random
@@ -170,14 +171,23 @@ relocalization and loop searches.
      ms per event. The NCCL group is destroyed at the end;
  20. the CLI from files, run in phase 11's place: the bench sequence's
      first 48 frames (640x480) as the port's tools/make_synth_sequence
-     lays them out, the rendered frames written as PNGs (zlib) with the
-     tool's text files; the tool itself renders the first 4, which must
-     equal them byte for byte; load_gray of frame 13 equals the rendered
-     frame; run_mono (orb32, the JAX System's defaults) on the card over
-     the folder, scored by tools/evaluate_ate: 0 resets, >= 45 tracked,
-     keyframe ATE < 5 cm, PIL never imported; ms per frame, decode ms per
-     frame (and of an all-Paeth copy of frame 13), K1 / K2 / pack
-     launches (phase 11's);
+     lays them out, the rendered frames written as PNGs whose rows take
+     libpng's adaptive filter choice (filtered_png), with the tool's text
+     files; the tool itself renders the first 4, which must equal, byte for
+     byte, io/png.write_png's files of those frames; load_gray of frame 13
+     equals the rendered frame; run_mono (orb32, the JAX System's
+     defaults) on the card over the folder, its frames read ahead by
+     native.FrameLoader, scored by tools/evaluate_ate: 0 resets, >= 45
+     tracked, keyframe ATE < 5 cm, PIL never imported; ms per frame, the
+     reader thread's decode ms per frame and the tracking thread's wait in
+     get(i) (median, p90, max), the plain unfilter's decode of every 6th
+     file (equal), an all-Paeth copy of frame 13, K1 / K2 / pack launches
+     (phase 11's); then the host library: 8 RGB 640x480 frames with
+     adaptive filters read by the FrameLoader equal the plain unfilter's
+     decode byte for byte (ms per frame, compiled and plain unfilter); on
+     the run's final map the library's observation counts, covisibility
+     weights and matrix and point statistics equal their numpy twins
+     (floats bit for bit), ms per call each;
  21. tools/create_vocabulary (orb32, every 6th of those frames, 8 frames,
      branching 32, depth 2) on the card and on the CPU: at least 99.9% of
      the descriptor rows equal; equal rows must give equal trees; frame
@@ -240,6 +250,7 @@ BOUNDED_FRAMES = 10
 
 
 T_START = time.perf_counter()
+CARD = ["card not read"]  # nvidia-smi's name and power limit, set by main()
 
 
 def log(msg):
@@ -2727,6 +2738,8 @@ def ba_layouts_phase(torch, device, problem, intrinsics, frames):
 
 # ---------------------------------------------------------------- phases 20-23
 N_TOOL_FRAMES = 4  # frames make_synth_sequence renders itself in phase 20
+N_RGB_FRAMES = 8   # phase 20's RGB frames through the FrameLoader
+PLAIN_DECODE_EVERY = 6  # phase 20 decodes every 6th file with the plain unfilter too
 VOCAB_ARGS = ("feature:orb32", "sample_every:6", "max_frames:8")
 # the card's and the CPU's orb32 rows over those frames: 99.95% equal on
 # the card (PERF.md section 6); a faulty extraction gives far fewer
@@ -2740,9 +2753,13 @@ MAX_TRAIN_LOSS_REL = 1e-5
 MAX_DESC_NORM_ERR = 1e-5
 
 
-def _paeth_png(path, img):
-    """An 8-bit gray PNG of `img` whose every row uses the Paeth filter (the
-    slowest row to decode; io/png.write_png writes filter type 0)."""
+def filtered_png(path, img, filters=(0, 1, 2, 3, 4)):
+    """An 8-bit gray (H, W) or RGB (H, W, 3) PNG of `img` whose every row
+    takes, of `filters`, the filter type with the smallest sum of absolute
+    values of its bytes read as signed (libpng's adaptive heuristic; the
+    first such type on ties). The filters read the original pixels only,
+    so every row's five candidates are computed at once in numpy.
+    filters=(4,): every row Paeth, the slowest to undo."""
     import struct
     import zlib
 
@@ -2750,23 +2767,33 @@ def _paeth_png(path, img):
 
     from anyfeature_vslam_tpu_torch.io import png
 
-    raw = img.astype(np.int64)
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    raw = img.reshape(h, w * bpp).astype(np.int64)
+    zero_col = np.zeros((h, bpp), np.int64)
     prior = np.vstack([np.zeros((1, raw.shape[1]), np.int64), raw[:-1]])
-    left = np.hstack([np.zeros((raw.shape[0], 1), np.int64), raw[:, :-1]])
-    upleft = np.hstack([np.zeros((raw.shape[0], 1), np.int64), prior[:, :-1]])
+    left = np.hstack([zero_col, raw[:, :-bpp]])
+    upleft = np.hstack([zero_col, prior[:, :-bpp]])
     p = left + prior - upleft
     pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
-    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
-    rows = np.hstack([np.full((raw.shape[0], 1), 4, np.uint8), ((raw - pred) % 256).astype(np.uint8)])
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+    preds = {0: 0, 1: left, 2: prior, 3: (left + prior) >> 1, 4: paeth}
+    cand = np.stack([(raw - preds[f]) % 256 for f in filters])       # (F, H, stride)
+    cost = np.minimum(cand, 256 - cand).sum(-1)                       # (F, H)
+    pick = np.argmin(cost, axis=0)
+    rows = np.take_along_axis(cand, pick[None, :, None], 0)[0].astype(np.uint8)
+    kinds = np.asarray(filters, np.uint8)[pick][:, None]
+    ctype = 0 if img.ndim == 2 else 2
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
     with open(path, "wb") as f:
-        f.write(png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", img.shape[1], img.shape[0],
-                                                           8, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+        f.write(png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(np.hstack([kinds, rows]).tobytes(), 6))
+                + chunk(b"IEND", b""))
+    return np.bincount(pick, minlength=len(filters))
 
 
 def _run_tool(main, argv):
@@ -2787,11 +2814,12 @@ def write_cli_sequence(root, frames):
     """Phase 20's files: the bench sequence (make_synth_sequence's seed 3,
     radius 0.8, revisit 0.2; 150 frames) cut to its first len(`frames`)
     frames, written to root/seq as the tool lays it out: the rendered
-    `frames` through io/png.write_png, the text files through the tool's
-    poses_for and write_sequence_files. The tool itself writes the first
-    N_TOOL_FRAMES frames to root/tool; its PNGs must equal those written
-    here byte for byte and its text files must be the first lines of
-    these. Returns (root/seq, failures)."""
+    `frames` through filtered_png (libpng's adaptive row filters, as real
+    sequences are saved), the text files through the tool's poses_for and
+    write_sequence_files. The tool itself writes the first N_TOOL_FRAMES
+    frames to root/tool; its PNGs must equal io/png.write_png's files of
+    the same rendered frames (root/ref) byte for byte, and its text files
+    must be the first lines of these. Returns (root/seq, failures)."""
     import numpy as np
 
     from anyfeature_vslam_tpu_torch.io import png
@@ -2805,24 +2833,29 @@ def write_cli_sequence(root, frames):
     t_tool = time.perf_counter() - t0
     t0 = time.perf_counter()
     os.makedirs(os.path.join(seq, "rgb"))
-    for i, img in enumerate(frames):
-        png.write_png(os.path.join(seq, f"rgb/{i:06d}.png"), np.ascontiguousarray(img))
+    used = sum(filtered_png(os.path.join(seq, f"rgb/{i:06d}.png"), np.ascontiguousarray(img))
+               for i, img in enumerate(frames))
     mss.write_sequence_files(seq, mss.poses_for("circle", 150, 0.2, 0.8)[:len(frames)], 30.0,
                              W, H)
     t_write = time.perf_counter() - t0
+    ref = os.path.join(root, "ref")
+    os.makedirs(ref)
+    for i in range(N_TOOL_FRAMES):
+        png.write_png(os.path.join(ref, f"{i:06d}.png"), np.ascontiguousarray(frames[i]))
 
     def read(*parts):
         with open(os.path.join(*parts), "rb") as f:
             return f.read()
 
-    same_png = all(read(tool, f"rgb/{i:06d}.png") == read(seq, f"rgb/{i:06d}.png")
+    same_png = all(read(tool, f"rgb/{i:06d}.png") == read(ref, f"{i:06d}.png")
                    for i in range(N_TOOL_FRAMES))
     same_text = all(read(seq, name).startswith(read(tool, name).rstrip(b"\n"))
                     for name in ("rgb.csv", "groundtruth.csv")) and \
         read(seq, "calibration.yaml") == read(tool, "calibration.yaml")
     log(f"[cli] make_synth_sequence rendered and wrote frames 0-{N_TOOL_FRAMES - 1} in "
         f"{t_tool:.1f} s; the rendered bench frames written as its {len(frames)}-frame "
-        f"sequence in {t_write:.1f} s; its PNGs equal byte for byte: {same_png}, its text "
+        f"sequence in {t_write:.1f} s, rows by filter type (None, Sub, Up, Average, Paeth) "
+        f"{used.tolist()}; its PNGs equal write_png's byte for byte: {same_png}, its text "
         f"files the first lines: {same_text}")
     fail = [] if rc == 0 else [f"make_synth_sequence exited {rc}"]
     if not (same_png and same_text):
@@ -2872,15 +2905,152 @@ def probed_run_sequence(torch, device, sync_sites, sync_frames):
         system_mod.System = base
 
 
+def timed_decode(paths, unfilter):
+    """load_gray of each path with io/png's unfilter swapped for
+    `unfilter` (the compiled routine or its plain twin): (frames, ms per
+    frame, of which unfilter's ms per frame)."""
+    from anyfeature_vslam_tpu_torch.io import dataset, png
+
+    spent = []
+
+    def shim(*a):
+        t0 = time.perf_counter()
+        try:
+            return unfilter(*a)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    base, png.unfilter = png.unfilter, shim
+    try:
+        t0 = time.perf_counter()
+        imgs = [dataset.load_gray(p) for p in paths]
+        wall = time.perf_counter() - t0
+    finally:
+        png.unfilter = base
+    return imgs, wall * 1e3 / len(paths), sum(spent) * 1e3 / len(paths)
+
+
+def loader_lines(system, n, wall, plain_ms, n_plain):
+    """The run's FrameLoader readings (system.frame_loader, set by
+    run_sequence): every frame read through it, the reader thread's decode
+    and the tracking thread's wait in get(i). Returns failures."""
+    import numpy as np
+
+    ld = system.frame_loader
+    dec = np.array(list(ld.decode_s.values())) * 1e3
+    wait = np.array(ld.wait_s) * 1e3
+    log(f"[native] FrameLoader over {n} adaptive-filter PNG frames {W}x{H}: the reader "
+        f"thread's decode {dec.mean():.3f} ms per frame (median {np.median(dec):.3f}, max "
+        f"{dec.max():.3f}); the tracking thread's wait in get(i) median "
+        f"{np.median(wait):.3f} ms, p90 {np.percentile(wait, 90):.3f} ms, max "
+        f"{wait.max():.3f} ms over {len(wait)} calls; run_mono {wall * 1e3 / n:.1f} ms per "
+        f"frame; the plain unfilter's decode {plain_ms:.3f} ms per frame ({n_plain} of the "
+        f"files, host); {CARD[0]}")
+    if len(wait) != n or len(dec) != n:
+        return [f"{len(wait)} frames of {n} read through the FrameLoader"]
+    return []
+
+
+def rgb_loader_check(root, frames):
+    """8 RGB 640x480 frames with adaptive row filters: the FrameLoader's
+    frames equal load_gray's through the plain unfilter, byte for byte;
+    decode and unfilter ms per frame, compiled and plain. Returns
+    failures."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch import native
+    from anyfeature_vslam_tpu_torch.io import png
+
+    os.makedirs(os.path.join(root, "rgb8"))
+    paths, used = [], 0
+    for i, f in enumerate(frames[:N_RGB_FRAMES]):
+        paths.append(os.path.join(root, f"rgb8/{i}.png"))
+        used = used + filtered_png(paths[-1], np.dstack([f, np.roll(f, 9, axis=1), 255 - f]))
+    with native.FrameLoader(paths, H, W) as ld:
+        got = [ld.get(i) for i in range(len(paths))]
+        dec_ms = 1e3 * sum(ld.decode_s.values()) / len(paths)
+    plain, plain_ms, plain_unf = timed_decode(paths, png.unfilter_plain)
+    comp, comp_ms, comp_unf = timed_decode(paths, png.unfilter)
+    same = all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(got, plain, comp))
+    log(f"[native] {len(paths)} RGB frames {W}x{H}, rows by filter type {used.tolist()}: the "
+        f"FrameLoader's frames equal the plain unfilter's decode byte for byte: {same}; "
+        f"unfilter {comp_unf:.3f} ms per frame compiled, {plain_unf:.3f} ms plain; load_gray "
+        f"{comp_ms:.3f} ms compiled, {plain_ms:.3f} ms plain; the reader thread "
+        f"{dec_ms:.3f} ms per frame; {CARD[0]}")
+    return [] if same else ["the FrameLoader's RGB frames differ from the plain decode"]
+
+
+def map_kernels_check(slam_map):
+    """The host library's map kernels on a System's final map against their
+    numpy twins: counts, weights (every keyframe) and the covisibility
+    matrix exactly, the point statistics of every valid point (on copies)
+    bit for bit; ms per call. Returns failures."""
+    import numpy as np
+
+    from anyfeature_vslam_tpu_torch import native
+
+    m = slam_map
+    kfs = m.keyframe_ids()
+    pts = np.nonzero(m.pt_valid)[0]
+
+    def ms(fn, reps):
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            t.append(time.perf_counter() - t0)
+        return out, 1e3 * statistics.median(t)
+
+    def stats(fn):
+        outs = [a.copy() for a in (m.pt_desc_bits, m.pt_normal, m.pt_ref_size, m.pt_ref_dist,
+                                   m.pt_min_dist, m.pt_max_dist)]
+        fn(m.kf_matches, m.kf_valid, m.kf_desc_bits, m.kf_size, m.kf_centers(), pts, m.pt_pos,
+           m.pt_ref_kf, *outs)
+        return outs
+
+    rows, fail = [], []
+    for name, comp, plain, reps in (
+            ("point_obs_counts",
+             lambda: native.point_obs_counts(m.kf_matches, m.kf_valid, m.max_pt),
+             lambda: native.point_obs_counts_plain(m.kf_matches, m.kf_valid, m.max_pt), 5),
+            ("covisibility_weights (every keyframe)",
+             lambda: [native.covisibility_weights(m.kf_matches, m.kf_valid, k, m.max_pt)
+                      for k in kfs],
+             lambda: [native.covisibility_weights_plain(m.kf_matches, m.kf_valid, k, m.max_pt)
+                      for k in kfs], 3),
+            ("covisibility_matrix",
+             lambda: native.covisibility_matrix(m.kf_matches, m.kf_valid, m.max_pt),
+             lambda: native.covisibility_matrix_plain(m.kf_matches, m.kf_valid, m.max_pt), 5),
+            ("update_point_stats (every valid point)", lambda: stats(native.update_point_stats),
+             lambda: stats(native.update_point_stats_plain), 2)):
+        got, c_ms = ms(comp, reps)
+        want, p_ms = ms(plain, reps)
+        same = all(np.array_equal(a, b) for a, b in zip(got, want)) \
+            if isinstance(got, list) else np.array_equal(got, want)
+        per = len(kfs) if name.startswith("covisibility_weights") else 1
+        rows.append(f"{name} {c_ms / per:.3f} ms per call compiled, {p_ms / per:.3f} ms plain, "
+                    f"equal: {same}")
+        if not same:
+            fail.append(f"the library's {name} differs from its twin")
+    log(f"[native] map kernels on the final map ({len(kfs)} keyframes, {len(pts)} points, "
+        f"max_pt {m.max_pt}): {'; '.join(rows)}; {CARD[0]}")
+    return fail
+
+
 def cli_phase(torch, device, frames):
     """Phases 11 and 20, one System run: run_mono.main (orb32, the JAX
     System's defaults: asynchronous mapping, each local BA issued on the
     mapping stream and folded later) on the card over the bench's first
-    N_ASYNC_FRAMES frames, read from PNG files (write_cli_sequence) by
-    io/png, with the System under a SystemProbe. Phase 20's checks:
-    load_gray of frame FIRST_TRACKED equals the rendered frame (and an
-    all-Paeth copy of it decodes equal), the port's evaluate_ate scores the
-    keyframe and frame trajectories, PIL is never imported. Phase 11's
+    N_ASYNC_FRAMES frames, read from adaptive-filter PNG files
+    (write_cli_sequence) by io/png on run_sequence's FrameLoader, with the
+    System under a SystemProbe. Phase 20's checks: load_gray of frame
+    FIRST_TRACKED equals the rendered frame (and an all-Paeth copy of it,
+    and the plain unfilter's decode of every PLAIN_DECODE_EVERY-th file,
+    decode equal), every frame read through the FrameLoader, the RGB frames
+    (rgb_loader_check) and the map kernels (map_kernels_check) equal their
+    plain twins, the port's evaluate_ate scores the keyframe and frame
+    trajectories, PIL is never imported. Phase 11's
     readings: frames timed without a device sync (a deferred solve
     overlaps the next frames), host syncs over the first N_SYNC_FRAMES,
     where each fold landed. Gates: 0 resets, >= 45 tracked, keyframe ATE <
@@ -2894,7 +3064,7 @@ def cli_phase(torch, device, frames):
     import numpy as np
 
     from anyfeature_vslam_tpu_torch import perfcount, run_mono
-    from anyfeature_vslam_tpu_torch.io import dataset
+    from anyfeature_vslam_tpu_torch.io import dataset, png
     from anyfeature_vslam_tpu_torch.tools import evaluate_ate
     from torch_slice_scene import FIRST_TRACKED, SliceScene
 
@@ -2902,20 +3072,23 @@ def cli_phase(torch, device, frames):
     out = os.path.join(tmp.name, "out")
     seq, fail = write_cli_sequence(tmp.name, frames[:N_ASYNC_FRAMES])
     paths = dataset.load_sequence(seq).image_paths
-    t0 = time.perf_counter()
-    decoded = [dataset.load_gray(p) for p in paths]
-    decode_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    decoded, decode_ms, unfilter_ms = timed_decode(paths, png.unfilter)
     same = np.array_equal(decoded[FIRST_TRACKED], frames[FIRST_TRACKED].astype(np.float32))
+    plain_paths = paths[::PLAIN_DECODE_EVERY]
+    plain, plain_dec_ms, plain_unf = timed_decode(plain_paths, png.unfilter_plain)
+    same_plain = all(np.array_equal(a, b) for a, b in zip(plain, decoded[::PLAIN_DECODE_EVERY]))
     paeth = os.path.join(tmp.name, "paeth.png")
-    _paeth_png(paeth, frames[FIRST_TRACKED])
+    filtered_png(paeth, frames[FIRST_TRACKED], (4,))
     t0 = time.perf_counter()
     paeth_img = dataset.load_gray(paeth)
     paeth_ms = (time.perf_counter() - t0) * 1e3
     log(f"[cli] load_gray of frame {FIRST_TRACKED} equals the in-memory frame: {same}; decode "
-        f"{decode_ms:.3f} ms per frame (filter-0 rows, {len(paths)} frames, host), "
+        f"{decode_ms:.3f} ms per frame (adaptive-filter rows, {len(paths)} frames, host; "
+        f"unfilter {unfilter_ms:.3f} ms of it), with the plain unfilter {plain_dec_ms:.3f} ms "
+        f"(unfilter {plain_unf:.3f} ms; {len(plain_paths)} frames, equal: {same_plain}); "
         f"{paeth_ms:.3f} ms for frame {FIRST_TRACKED} with every row Paeth-filtered (equal: "
-        f"{np.array_equal(paeth_img, decoded[FIRST_TRACKED])})")
-    if not same or not np.array_equal(paeth_img, decoded[FIRST_TRACKED]):
+        f"{np.array_equal(paeth_img, decoded[FIRST_TRACKED])}); {CARD[0]}")
+    if not same or not same_plain or not np.array_equal(paeth_img, decoded[FIRST_TRACKED]):
         fail.append("the decoded frame differs from the rendered one")
 
     counters = _counters()
@@ -2981,6 +3154,9 @@ def cli_phase(torch, device, frames):
         f"evaluate_ate keyframes {scores['keyframes']}, frames {scores['frames']}")
     log(f"[cli] decode {decode_ms:.3f} ms per frame against {wall * 1e3 / len(rows):.1f} ms "
         f"per frame")
+    fail += loader_lines(system, N_ASYNC_FRAMES, wall, plain_dec_ms, len(plain_paths))
+    fail += rgb_loader_check(tmp.name, frames)
+    fail += map_kernels_check(system.map)
     pil = "PIL" in sys.modules
     log(f"[cli] PIL loaded: {pil}")
     if len(rows) != N_ASYNC_FRAMES:
@@ -3180,7 +3356,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    CARD[0] = smi.stdout.strip().splitlines()[0]
+    log(CARD[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -3208,9 +3385,21 @@ def main() -> int:
     # ---- 1. build: one nvcc per source, all started together
     names = ("fast_nms", "best_two")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+
+    def timed(fn, name):
+        fn(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host_job = pool.submit(timed, cuda_build.build_host, "slam_native")
         list(pool.map(cuda_build.build, names))
-    log(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.1f} s; the host "
+        f"library slam_native ({cuda_build.find_cxx()}) in {host_job.result():.2f} s, "
+        f"{CARD[0]}")
+    from anyfeature_vslam_tpu_torch import native
+
+    native.lib()
+    log(f"[build] slam_native -> {cuda_build.host_library_path('slam_native', cuda_build.find_cxx()).name}")
     for name in names:
         cuda_build.load(name)
         log(f"[build] {name} -> {cuda_build.library_path(name).name}")

@@ -283,7 +283,7 @@ def test_port_imports_neither_jax_nor_pil():
         "          'parallel.point_sharded_ba', 'io.png', 'tools.evaluate_ate',\n"
         "          'tools.make_synth_sequence', 'tools.create_vocabulary',\n"
         "          'tools.train_patch_descriptor', 'tools.bench_ba', 'tools.profile_detect',\n"
-        "          'tools.profile_tracking'):\n"
+        "          'tools.profile_tracking', 'native'):\n"
         "    assert 'anyfeature_vslam_tpu_torch.' + m in mods, (m, mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'PIL', 'anyfeature_vslam_tpu.'))]\n"
         "assert not bad, bad\n"
