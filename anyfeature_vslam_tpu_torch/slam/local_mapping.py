@@ -273,7 +273,6 @@ class LocalMapper:
         # guarded by uid against slot recycling, with their hand-off
         self._dev_kf: dict[int, tuple] = {}
         self._pending_fold = None
-        self.stage_times: dict[str, list] = {}
         self.ba_log: list[dict] = []
         # the last local BA's padded host arrays (run_bundle_adjustment's
         # order) and its sizes
@@ -335,14 +334,10 @@ class LocalMapper:
             return
 
         def run():
-            t_w = time.perf_counter()
             f.ready.wait()
-            perfcount.event("ba_ready", dur=time.perf_counter() - t_w)
             with self.lock:
                 if self._pending_fold is f:
-                    t0 = time.perf_counter()
                     self.fold_pending()
-                    perfcount.event("ba_fold", dur=time.perf_counter() - t0)
 
         threading.Thread(target=run, daemon=True, name="ba-fold").start()
 
@@ -374,24 +369,14 @@ class LocalMapper:
         with the lock released, then folded under short lock windows; the
         fusion does not see this event's new points (they fuse at the next
         event), as in the JAX package."""
-        stages = self.stage_times
-        t = time.perf_counter()
-
-        def mark(name, t0):
-            t1 = time.perf_counter()
-            stages.setdefault(name, []).append(t1 - t0)
-            return t1
-
-        perfcount.event("map_event_start", kf=int(kf))
         if self._pending_fold is not None:
             # wait for the previous solve's results with the lock released
-            self.wait_pending_ready()
-            t = mark("fold_wait", t)
-            with self.lock:
+            with perfcount.span("map.fold_wait"):
+                self.wait_pending_ready()
+            with perfcount.span("map.fold"), self.lock:
                 self.flush_results()
-            t = mark("fold", t)
         m = self.map
-        with self.lock:
+        with perfcount.span("map.stats+cullpts"), self.lock:
             self.n_kf_processed += 1
             mm = m.kf_matches[kf]
             m.update_point_stats(np.unique(mm[mm >= 0]))
@@ -405,45 +390,41 @@ class LocalMapper:
                     m.kf_parent[kf] = best
             self._cull_recent_points()
             self.in_sparse_phase = True
-        t = mark("stats+cullpts", t)
         if m.n_keyframes() >= 2:
             if overlap_results:
-                rec_t = self._dispatch_new_points(kf)
-                rec_f = self._dispatch_fuse(kf)
-                t = mark("dispatch", t)
-                for rec in (rec_t, rec_f):
-                    if rec is not None:
-                        rec["ready"].wait()
-                t = mark("wait", t)
-                if rec_t is not None:
-                    with self.lock:
-                        self._fold_new_points(rec_t)
-                t = mark("triangulate", t)
-                with self.lock:
+                with perfcount.span("map.dispatch"):
+                    rec_t = self._dispatch_new_points(kf)
+                    rec_f = self._dispatch_fuse(kf)
+                with perfcount.span("map.wait"):
+                    for rec in (rec_t, rec_f):
+                        if rec is not None:
+                            rec["ready"].wait()
+                with perfcount.span("map.triangulate"):
+                    if rec_t is not None:
+                        with self.lock:
+                            self._fold_new_points(rec_t)
+                with perfcount.span("map.fuse"), self.lock:
                     if rec_f is not None:
                         self._fold_fuse(rec_f)
                     self.in_sparse_phase = False
                     self._n_events += 1
                     self.fresh_event = self._n_events
-                t = mark("fuse", t)
             else:
                 with self.lock:
-                    rec = self._dispatch_new_points(kf)
-                    if rec is not None:
-                        self._fold_new_points(rec)
-                    t = mark("triangulate", t)
-                    rec = self._dispatch_fuse(kf)
-                    if rec is not None:
-                        self._fold_fuse(rec)
-                    self.in_sparse_phase = False
-                    t = mark("fuse", t)
-            self._local_ba(kf, defer=defer_ba)
-            t = mark("local_ba", t)
+                    with perfcount.span("map.triangulate"):
+                        rec = self._dispatch_new_points(kf)
+                        if rec is not None:
+                            self._fold_new_points(rec)
+                    with perfcount.span("map.fuse"):
+                        rec = self._dispatch_fuse(kf)
+                        if rec is not None:
+                            self._fold_fuse(rec)
+                        self.in_sparse_phase = False
+            with perfcount.span("map.local_ba"):
+                self._local_ba(kf, defer=defer_ba)
         self.in_sparse_phase = False
-        with self.lock:
+        with perfcount.span("map.cullkfs"), self.lock:
             self._cull_keyframes(kf)
-        mark("cullkfs", t)
-        perfcount.event("map_event_end", kf=int(kf))
 
     # ------------------------------------------------------------------
     def _dispatch_fuse(self, kf: int):

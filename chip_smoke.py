@@ -323,12 +323,18 @@ def bound(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_events(torch, prof):
+    """A profile's device events (kernels, copies): its CUDA events less the
+    device-side annotations that the ranges of the port's span recorder
+    (perfcount.span, on from phase 8) leave in the card's trace."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def device_ms_by_kernel(torch, prof):
     """{kernel substring: (launches, total device ms)} from a profile."""
     out = {k: (0, 0.0) for k in PROFILED_KERNELS}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in device_events(torch, prof):
         for k in PROFILED_KERNELS:
             if k in e.name:
                 n, t = out[k]
@@ -881,16 +887,128 @@ def ate(system, sc):
     return kf_ate, fr_ate, len(kfs), len(est), align
 
 
+def record_spans():
+    """Turn the port's span recorder on (perfcount.span), its earlier spans
+    dropped: a phase that reads stage times calls it first."""
+    from anyfeature_vslam_tpu_torch import perfcount
+
+    perfcount.clear_spans()
+    perfcount.trace_enabled = True
+
+
+def span_seconds(prefix):
+    """{stage: [seconds, ...]} of the recorded spans named prefix + stage,
+    in the order they ended (``record_spans``)."""
+    from anyfeature_vslam_tpu_torch import perfcount
+
+    out = {}
+    for s in perfcount.spans():
+        if s.name.startswith(prefix):
+            out.setdefault(s.name[len(prefix):], []).append((s.end_ns - s.start_ns) / 1e9)
+    return out
+
+
 def loop_stage_line(system, label):
     """The loop stage per keyframe event: its ms, the BoW transform's and
-    detection's medians, the database's size."""
+    detection's medians (the loop.* spans since ``record_spans``), the
+    database's size."""
     lc = system.loop_closer
-    st = {k: statistics.median(v) * 1e3 for k, v in lc.stage_times.items() if v}
+    stages = span_seconds("loop.")
+    st = {k: statistics.median(v) * 1e3 for k, v in stages.items() if v}
     log(f"[{label}] loop stage: {len(system.loop_times)} events, median "
         f"{statistics.median(system.loop_times) * 1e3:.2f} ms (BoW transform "
         f"{st.get('bow', float('nan')):.2f}, detection {st.get('detect', float('nan')):.2f} ms; "
-        f"{len(lc.stage_times.get('sim3', []))} Sim3 candidates tried); database "
+        f"{len(stages.get('sim3', []))} Sim3 candidates tried); database "
         f"{int(system.database.present.sum())} keyframes; closures {lc.n_loops_closed}")
+
+
+# the CUDA API calls that launch a kernel (``cuda*`` and the lower-level
+# ``cu*``), in a profile's host events
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def tracked_calls(spans, since_ns=0):
+    """The tracked calls among `spans` (perfcount.spans()) that began at or
+    after since_ns, in order: one {span name: summed ms} per ``frame`` span,
+    the frame's own ms under "frame" and each span nested in it summed
+    under its name."""
+    by_id = {s.id: s for s in spans}
+
+    def root(s):
+        while s.parent is not None and s.parent in by_id:
+            s = by_id[s.parent]
+        return s
+
+    frames = sorted((s for s in spans if s.name == "frame" and s.start_ns >= since_ns),
+                    key=lambda s: s.start_ns)
+    per = {s.id: {"frame": (s.end_ns - s.start_ns) / 1e6} for s in frames}
+    for s in spans:
+        top = root(s)
+        if s is not top and top.id in per:
+            call = per[top.id]
+            call[s.name] = call.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e6
+    return [per[s.id] for s in frames]
+
+
+def span_launches(torch, prof):
+    """({span name: kernel launch calls inside its ranges}, tracked calls)
+    from a profile taken with host and device activity while the recorder
+    was on: the launch calls on the tracking thread (the thread of the
+    ``frame`` ranges) whose start lies in a range of that name, a call
+    counted once per name (nested names count it each)."""
+    import bisect
+
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in prof.events() if e.device_type != cuda]
+    frames = [e for e in host if e.name == "frame"]
+    if not frames:
+        return {}, 0
+    thread = frames[0].thread
+    mine = [e for e in host if e.thread == thread]
+    starts = sorted(e.time_range.start for e in mine if e.name in LAUNCH_CALLS)
+    names = {"frame"} | {e.name for e in mine if e.name.startswith(("frame.", "track."))}
+    out = {}
+    for e in mine:
+        if e.name in names:
+            a, b = e.time_range.start, e.time_range.end
+            n = bisect.bisect_right(starts, b) - bisect.bisect_left(starts, a)
+            out[e.name] = out.get(e.name, 0) + n
+    return out, len(frames)
+
+
+def span_split(label, spans, since_ns=0, launches=None, detail=False):
+    """Log where a tracked call's time goes, from the recorder's spans: the
+    median ms per call of the extraction (``track.extract``), the pose LMs
+    (summed ``track.pose_lm``), the host syncs (``track.motion_sync`` +
+    ``track.retire_wait``) and the frame; the 90th percentile of the wait
+    for the turn (``frame.turn_wait``); the keyframe events' median
+    (``event``). With detail, a line per span name: the calls it ran in,
+    its median ms there and, given `launches` (``span_launches``), its
+    kernel launch calls per profiled call."""
+    calls = tracked_calls(spans, since_ns)
+    if not calls:
+        log(f"[{label}] spans: no tracked call recorded")
+        return
+    med = (lambda name: statistics.median(c.get(name, 0.0) for c in calls))
+    sync = statistics.median(c.get("track.motion_sync", 0.0) + c.get("track.retire_wait", 0.0)
+                             for c in calls)
+    waits = sorted(c.get("frame.turn_wait", 0.0) for c in calls)
+    events = [(s.end_ns - s.start_ns) / 1e6 for s in spans
+              if s.name == "event" and s.start_ns >= since_ns]
+    log(f"[{label}] spans over {len(calls)} tracked calls (median ms per call): frame "
+        f"{med('frame'):.2f}, extraction {med('track.extract'):.2f}, pose LMs "
+        f"{med('track.pose_lm'):.2f}, host syncs {sync:.2f}; turn wait p90 "
+        f"{waits[int(0.9 * (len(waits) - 1))]:.2f} ms; {len(events)} keyframe events, median "
+        f"{statistics.median(events) if events else float('nan'):.2f} ms")
+    if detail:
+        counts, n_prof = launches if launches is not None else ({}, 0)
+        for name in sorted({n for c in calls for n in c}):
+            there = [c[name] for c in calls if name in c]
+            per = (f"; {counts.get(name, 0) / n_prof:.0f} launch calls per call over "
+                   f"{n_prof} profiled calls" if n_prof else "")
+            log(f"[{label}] span {name}: in {len(there)} of {len(calls)} calls, median "
+                f"{statistics.median(there):.2f} ms there, {sum(there) / len(calls):.2f} ms "
+                f"per call{per}")
 
 
 def system_phase(torch, device, frames):
@@ -905,6 +1023,7 @@ def system_phase(torch, device, frames):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     perfcount.reset()
+    record_spans()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -944,7 +1063,7 @@ def system_phase(torch, device, frames):
         f"({len(kf_frames)} frames); {len(sevents)} keyframe events, median "
         f"{statistics.median(e['ms'] for e in sevents):.1f} ms; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    for name, ts in system.local_mapper.stage_times.items():
+    for name, ts in span_seconds("map.").items():
         log(f"[system] event stage {name}: median {1e3 * statistics.median(ts):.1f} ms, "
             f"max {1e3 * max(ts):.1f} ms over {len(ts)} events")
     loop_stage_line(system, "system")
@@ -1066,8 +1185,7 @@ def reloc_phase(torch, device, system, sc, align, frames):
     db.detect_relocalization_candidates = find_rec
     pnp.pnp_ransac_many = ransac_timed
     perfcount.reset()
-    perfcount.trace_enabled = True
-    perfcount.clear_events()
+    record_spans()
     reloc0 = tracker.stats["relocalizations"]
     sync_sites = {}
     torch.cuda.synchronize()
@@ -1091,11 +1209,9 @@ def reloc_phase(torch, device, system, sc, align, frames):
     finally:
         del db.detect_relocalization_candidates
         pnp.pnp_ransac_many = ransac
-        perfcount.trace_enabled = False
     launches = tuple(c.launches for c in counters)
     k2_by = probe.k2_by_label
-    reloc_events = [e for e in perfcount.events() if e[1] == "reloc"]
-    perfcount.clear_events()
+    reloc_s = span_seconds("track.").get("reloc", [])
     for what, r in rows:
         log(f"[reloc] {what}: {r['state']} {r['ms']:.1f} ms, inliers {r['inliers']}, launches "
             f"K1 {r['k1']} K2 {r['k2']} pack {r['pack']}, host syncs {r['syncs']}")
@@ -1109,8 +1225,8 @@ def reloc_phase(torch, device, system, sc, align, frames):
     log(f"[reloc] after {N_BLACKOUT} blackout frames: {state_after_blackout}; relocalized "
         f"{n_reloc} time(s) at the view of frame {fid}, {len(rows) - N_BLACKOUT} frame(s) "
         f"after the blackout; camera centre {100 * err:.3f} cm from the truth")
-    log(f"[reloc] relocalization attempts: {len(reloc_events)}, ms "
-        f"{[round(1e3 * e[2]['dur'], 2) for e in reloc_events]}; candidates per attempt "
+    log(f"[reloc] relocalization attempts: {len(reloc_s)}, ms "
+        f"{[round(1e3 * d, 2) for d in reloc_s]}; candidates per attempt "
         f"{[len(c) for c in cands]} ({cands}); batched RANSAC-EPnP ms "
         f"{[round(x, 2) for x in pnp_ms]}; K2 launches by search {json.dumps(k2_by)}; host "
         f"syncs {sum(sync_sites.values())}")
@@ -1212,6 +1328,7 @@ def loop_phase(torch, device, sc, frames):
                        device=device)
         sys_b.load_checkpoint(ckpt)
     n_loaded = sys_b.map.n_keyframes()
+    record_spans()  # the loop stage's spans: session B's alone
     closing = []
     with SystemProbe(torch, sys_b, device, recorded) as probe_b:
         rows_b = []
@@ -1249,8 +1366,9 @@ def loop_phase(torch, device, sc, frames):
         f"scores it (session A's keyframes) {ate_a:.5f} m; over both sessions {kf_ate:.5f} m; "
         f"session B's alone {ate_b:.5f} m; {wall:.1f} s")
     loop_stage_line(sys_b, "loop")
+    loop_stages = span_seconds("loop.")
     for name in ("sim3", "correct", "fuse", "essential_graph", "global_ba"):
-        v = lc.stage_times.get(name, [])
+        v = loop_stages.get(name, [])
         if v:
             log(f"[loop] closure stage {name}: {len(v)} runs, last {v[-1] * 1e3:.1f} ms, "
                 f"median {statistics.median(v) * 1e3:.2f} ms")
@@ -1297,6 +1415,7 @@ def constructed_loop_phase(torch, device):
     out = {}
     for dev in ("cpu", device):
         dev = torch.device(dev)
+        record_spans()
         m, gt_pose = build_loop_map(functools.partial(SlamMap, device=dev))
         n_kf = m.n_keyframes()
         voc = train_map_vocabulary(m, vocab.train_vocabulary)
@@ -1309,7 +1428,8 @@ def constructed_loop_phase(torch, device):
         out[dev.type] = dict(closed_at=closed_at, edges=list(m.loop_edges), poses=m.kf_pose.copy(),
                              ba_in=[b["kf_pose_in"] for b in lc.gba_log], before=before,
                              after=end_drift(m, gt_pose, n_kf), ms=ms,
-                             stages={k: round(1e3 * sum(v), 2) for k, v in lc.stage_times.items()},
+                             stages={k: round(1e3 * sum(v), 2)
+                                     for k, v in span_seconds("loop.").items()},
                              gba=lc.gba_log)
     c, g = out["cpu"], out[torch.device(device).type]
     d_in = float(np.abs(c["ba_in"][0] - g["ba_in"][0]).max()) if c["ba_in"] and g["ba_in"] else None
@@ -1335,6 +1455,9 @@ MAX_THREADED_LOST = 5
 # before its timed ones: the profiler's exit takes tens of seconds to
 # collect the window's kernels, holding the GIL, and stalls the worker
 PROFILED_WINDOW = (12, 16)
+# phase 12's next frames, profiled with host events too while the span
+# recorder is on, for the kernel launch calls inside each tracker span
+SPAN_WINDOW = (16, 19)
 SHUTDOWN_TIMEOUT_S = 60.0
 
 
@@ -1371,8 +1494,7 @@ def _frame_stats(rows):
 
 def _busy_share(torch, prof, wall_ms):
     """Device busy ms (the union of the CUDA kernels' intervals) and share."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    iv = sorted((e.time_range.start, e.time_range.end) for e in device_events(torch, prof))
     busy, end = 0.0, -1.0
     for a, b in iv:
         if b > end:
@@ -1389,9 +1511,11 @@ def threaded_phase(torch, device, frames):
     launched. Host syncs are counted over the first N_THREADED_SYNC_FRAMES
     frames (those inside the pipelined dispatch apart), the next frames
     (PROFILED_WINDOW) run under torch.profiler for the device's busy share,
-    and the worker is drained; the frames after are timed as a caller sees
-    them (no device sync), frames/s runs from there to the end of the final
-    drain, and the event stages are those of the events issued then.
+    the next (SPAN_WINDOW) under a profiler with host events for the launch
+    calls in each span, and the worker is drained; the frames after are
+    timed as a caller sees them (no device sync), frames/s runs from there
+    to the end of the final drain, and the event stages and the tracked
+    call's split (``span_split``) are those of the spans issued then.
     Counts set to 0 just before, read just after. Returns (launches K1, K2,
     pack; K2 by search)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1406,6 +1530,7 @@ def threaded_phase(torch, device, frames):
     counters = _counters()
     torch.cuda.synchronize()
     perfcount.reset()
+    record_spans()
     for c in counters:
         c.launches = 0
     system = System(cam, feature="orb32", n_features=N_FEATURES, threaded_mapping=True,
@@ -1415,12 +1540,15 @@ def threaded_phase(torch, device, frames):
         for i, img in enumerate(frames):
             if i == N_THREADED_SYNC_FRAMES:
                 n_disp = perfcount.get("track_dispatches")
-            if i == PROFILED_WINDOW[1]:
+            if i == SPAN_WINDOW[1]:
                 system._worker.flush(SHUTDOWN_TIMEOUT_S)
                 lm = system.local_mapper
                 n0 = dict(events=len(probe.events), ba=len(lm.ba_log),
-                          **{k: len(v) for k, v in lm.stage_times.items()})
-                t0 = time.perf_counter()
+                          **{k: len(v) for k, v in span_seconds("map.").items()})
+                t0, t0_ns = time.perf_counter(), time.perf_counter_ns()
+            if i == SPAN_WINDOW[0]:
+                span_prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                span_prof.__enter__()
             if i == PROFILED_WINDOW[0]:
                 prof = profile(activities=[ProfilerActivity.CUDA])
                 prof.__enter__()
@@ -1436,6 +1564,12 @@ def threaded_phase(torch, device, frames):
                 prof.__exit__(None, None, None)
                 busy = _busy_share(torch, prof, wall_ms) + (
                     wall_ms, time.perf_counter() - t_exit)
+                del prof
+            if i == SPAN_WINDOW[1] - 1:
+                torch.cuda.synchronize()
+                span_prof.__exit__(None, None, None)
+                launches = span_launches(torch, span_prof)
+                del span_prof
         max_queue = system._worker.max_pending
         t_stop = time.perf_counter()
         try:
@@ -1454,10 +1588,10 @@ def threaded_phase(torch, device, frames):
         f"({sum(dispatch_sites.values()) / max(n_disp, 1):.2f} per dispatch), by site:")
     for site, n in sorted(dispatch_sites.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[threaded syncs]   {n:5d}x  {site}")
-    timed = rows[PROFILED_WINDOW[1]:]
+    timed = rows[SPAN_WINDOW[1]:]
     ms = sorted(r["ms"] for r in timed)
     p90 = ms[int(0.9 * (len(ms) - 1))]
-    log(f"[threaded] {len(frames)} frames {W}x{H}; frames {PROFILED_WINDOW[1]}-"
+    log(f"[threaded] {len(frames)} frames {W}x{H}; frames {SPAN_WINDOW[1]}-"
         f"{len(frames) - 1} in {wall:.2f} s ({len(timed) / wall:.3f} frames/s, the final "
         f"drain included; shutdown {shutdown_s:.2f} s, worker stopped {stopped}); frame ms "
         f"over them median {statistics.median(ms):.1f}, p90 {p90:.1f}, max {ms[-1]:.1f}")
@@ -1478,12 +1612,18 @@ def threaded_phase(torch, device, frames):
         f"{perfcount.get('fast_failures'):.0f}, weak frames {perfcount.get('weak_frames'):.0f}, "
         f"staged frames {perfcount.get('staged_frames'):.0f}, pipelined dispatches "
         f"{perfcount.get('track_dispatches'):.0f}; folds landed by site {json.dumps(probe.folds)}")
-    for name, ts in lm.stage_times.items():
+    for name, ts in span_seconds("map.").items():
         ts = ts[n0.get(name, 0):]
         if ts:
             log(f"[threaded] timed event stage {name}: median {1e3 * statistics.median(ts):.2f} "
                 f"ms, max {1e3 * max(ts):.2f} ms over {len(ts)} events")
     ba_lines(lm.ba_log[n0["ba"]:], "threaded", "timed local BA (issue ms)")
+    spans = perfcount.spans()
+    span_split("threaded", spans, t0_ns, launches, detail=True)
+    whole = {}
+    for sp in spans:
+        whole[sp.name] = whole.get(sp.name, 0) + 1
+    log(f"[threaded] spans over the whole run, by name: {json.dumps(whole, sort_keys=True)}")
     loop_stage_line(system, "threaded")
     log(f"[threaded] profiled frames {PROFILED_WINDOW[0]}-{PROFILED_WINDOW[1] - 1}: wall "
         f"{busy[3]:.1f} ms (profiler on), device busy {busy[0]:.2f} ms over {busy[1]} "
@@ -1694,7 +1834,7 @@ def extraction_profile(torch, feature, ext, img, eager_ms):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = device_events(torch, prof)
         return out, len(ev), sum(e.device_time for e in ev) / 1e3
 
     levels, n_space, d_space = kernels(lambda: ext.levels(img))
@@ -1727,6 +1867,7 @@ def family_phase(torch, device, feature, frames, sc=None, image_paths=None):
 
     from torch_slice_scene import FIRST_TRACKED
 
+    from anyfeature_vslam_tpu_torch import perfcount
     from anyfeature_vslam_tpu_torch.ops import cuda_match
 
     precomputed = image_paths is not None
@@ -1735,6 +1876,7 @@ def family_phase(torch, device, feature, frames, sc=None, image_paths=None):
     counters = _counters()
     recorded = {}
     torch.cuda.synchronize()
+    record_spans()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -1763,6 +1905,7 @@ def family_phase(torch, device, feature, frames, sc=None, image_paths=None):
         f"event {plain_ms:.1f} ({n_plain} frames), with one {ev_ms:.1f} ({n_ev} frames); "
         f"{len(events)} events")
     loop_stage_line(system, feature)
+    span_split(feature, perfcount.spans())
     log(f"[{feature}] launches: K1 {k1} ({len(rows)} frames), K2 {k2} (by search "
         f"{json.dumps(k2_by)}; {k2_ref} of the tracking ones reference-keyframe searches), "
         f"pack {pack}")
@@ -2368,6 +2511,7 @@ def dbow2_phase(torch, device, frames, ext):
     counters = _counters()
     torch.cuda.synchronize()
     perfcount.reset()
+    record_spans()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -2378,7 +2522,7 @@ def dbow2_phase(torch, device, frames, ext):
     k1, k2, pack = (c.launches for c in counters)
     stats = system.tracker.stats
     kf_ate, fr_ate, n_kf, n_fr, _ = ate(system, sc)
-    bow = system.loop_closer.stage_times.get("bow", [])
+    bow = span_seconds("loop.").get("bow", [])
     log(f"[dbow2 system] {N_SYSTEM_FRAMES} frames {W}x{H} on the .txt vocabulary in {wall:.1f} "
         f"s: tracked {stats['tracked_frames']}, lost {stats['lost_frames']}, resets "
         f"{stats['resets']}; {system.map.n_keyframes()} keyframes, {system.map.n_points()} "
@@ -3094,6 +3238,7 @@ def cli_phase(torch, device, frames):
     counters = _counters()
     torch.cuda.synchronize()
     perfcount.reset()
+    record_spans()
     for c in counters:
         c.launches = 0
     sync_sites = {}
@@ -3123,10 +3268,11 @@ def cli_phase(torch, device, frames):
         f"({n_plain} frames), with one {ev_ms:.1f} ({n_ev} frames); {len(events)} events, "
         f"median {statistics.median(e['ms'] for e in events) if events else float('nan'):.1f} "
         f"ms (host, no device sync)")
-    for name, ts in lm.stage_times.items():
+    map_stages = span_seconds("map.")
+    for name, ts in map_stages.items():
         log(f"[async] event stage {name}: median {1e3 * statistics.median(ts):.2f} ms, max "
             f"{1e3 * max(ts):.2f} ms over {len(ts)} events")
-    waits = lm.stage_times.get("fold_wait", [])
+    waits = map_stages.get("fold_wait", [])
     log(f"[async] folds landed by site {json.dumps(probe.folds)}; events waited on a solve's "
         f"readiness {len(waits)} times, {1e3 * sum(waits):.2f} ms in all, median "
         f"{1e3 * statistics.median(waits) if waits else float('nan'):.2f} ms")
@@ -3721,7 +3867,7 @@ def main() -> int:
         t0 = time.perf_counter()
         track_frames(torch, sc, cam, ext, state, frames[:n_prof], device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(torch, prof)
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     log(f"[profile] {n_prof} frames: wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.2f}%), "

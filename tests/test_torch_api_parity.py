@@ -218,6 +218,10 @@ RENAMED = {
     ("slam/tracking.py", "DevicePointBlock"): ("slam/device_map.py", "DevicePointMirror"),
     ("parallel/point_sharded_ba.py", "make_mesh"): ("parallel/sharded_ba.py", "make_mesh"),
     ("native.py", "decode_png_gray"): ("io/dataset.py", "load_gray"),
+    # the event list's place is taken by the span recorder
+    ("perfcount.py", "event"): ("perfcount.py", "span"),
+    ("perfcount.py", "events"): ("perfcount.py", "spans"),
+    ("perfcount.py", "clear_events"): ("perfcount.py", "clear_spans"),
 }
 # (JAX module, name) -> why the port has no counterpart
 NOT_PORTED = {

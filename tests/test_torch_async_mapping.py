@@ -69,6 +69,7 @@ from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
 from anyfeature_vslam_tpu_torch.slam.tracking import FrameData
 from anyfeature_vslam_tpu_torch.system import System
 from loop_map import CAMERA, build_loop_map, end_drift, train_map_vocabulary
+from span_trace import Tracing
 from torch_slice_scene import SliceScene
 
 W, H, N_FEATURES = 320, 240, 600
@@ -109,7 +110,10 @@ def _pair(**kw):
                      enable_loop_closing=False, use_mesh=False, **kw)
     tsys = System(JaxCamera.create(**sc.camera), feature="orb32", n_features=N_FEATURES,
                   enable_loop_closing=False, device="cpu", **kw)
-    return _run(jsys, frames, wait), _run(tsys, frames, wait), tsys
+    jrun = _run(jsys, frames, wait)
+    with Tracing() as rec:
+        trun = _run(tsys, frames, wait)
+    return jrun, trun, tsys, rec
 
 
 @pytest.fixture(scope="module")
@@ -157,16 +161,16 @@ def _hold_poses(jposes, tposes, centre_tol, rot_tol, max_ate):
 
 
 def test_async_mapping_matches_jax(async_runs):
-    jrun, trun, tsys = async_runs
+    jrun, trun, tsys, rec = async_runs
     _hold_to_system_bounds(jrun, trun, N_EQUAL)
     # every local BA after the first events was deferred and folded later
     log = tsys.local_mapper.ba_log
     assert log and all(b["deferred"] for b in log)
-    assert tsys.local_mapper.stage_times.get("fold")
+    assert rec.stages("map.").get("fold")
 
 
 def test_pipelined_tracker_matches_jax(pipelined_runs):
-    jrun, trun, tsys = pipelined_runs
+    jrun, trun, tsys, _ = pipelined_runs
     _hold_to_system_bounds(jrun, trun, N_EQUAL, **PIPELINED_BOUNDS)
     assert tsys.tracker.pipeline_depth == 2 and not tsys.tracker._inflight
 

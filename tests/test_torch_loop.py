@@ -39,6 +39,7 @@ from anyfeature_vslam_tpu_torch.place_recognition.database import KeyFrameDataba
 from anyfeature_vslam_tpu_torch.slam.loop_closing import LoopCloser as PortCloser
 from anyfeature_vslam_tpu_torch.slam.map_state import SlamMap as PortMap
 from loop_map import CAMERA, build_loop_map, end_drift, train_map_vocabulary
+from span_trace import Tracing
 
 PortMapCpu = functools.partial(PortMap, device="cpu")
 
@@ -82,7 +83,8 @@ def test_loop_closure_matches_jax(monkeypatch):
     ba_in_j = []
     _snapshot_ba_input(monkeypatch, jlc, ba_in_j)
     kf_j = _closing_keyframe(jc, jm, n_kf)
-    kf_t = _closing_keyframe(tc, tm, n_kf)
+    with Tracing() as rec:
+        kf_t = _closing_keyframe(tc, tm, n_kf)
     assert kf_j is not None and kf_t == kf_j
     assert tm.loop_edges == jm.loop_edges and len(tm.loop_edges) == 1
     assert tc.n_loops_closed == jc.n_loops_closed == 1
@@ -97,8 +99,9 @@ def test_loop_closure_matches_jax(monkeypatch):
     assert end_drift(jm, gt_pose, n_kf) < 0.6 * before
     assert end_drift(tm, gt_pose, n_kf) < 0.6 * before
     # the stages ran and the global BA is logged with its caps and solver
+    stages = rec.stages("loop.")
     for stage in ("bow", "detect", "sim3", "correct", "fuse", "essential_graph", "global_ba"):
-        assert tc.stage_times.get(stage), stage
+        assert stages.get(stage), stage
     gba = tc.gba_log[0]
     assert gba["n_kf"] == n_kf and gba["dense"] and gba["k_cap"] == 64
 

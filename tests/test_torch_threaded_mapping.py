@@ -26,6 +26,7 @@ import torch
 from anyfeature_vslam_tpu_torch.io import evaluation
 from anyfeature_vslam_tpu_torch.slam.tracking import TrackState
 from anyfeature_vslam_tpu_torch.system import System
+from span_trace import Tracing
 from torch_slice_scene import SliceScene
 
 W, H, N_FEATURES, N_FRAMES = 320, 240, 600, 32
@@ -84,7 +85,8 @@ def test_threaded_system_tracks_and_shuts_down(scene, paced):
             system.track_monocular(img, i / 30.0)
         system.shutdown(timeout=60.0)
 
-    _within(DEADLINE_S, run)
+    with Tracing() as rec:
+        _within(DEADLINE_S, run)
     assert system._worker is None
     st = system.tracker.stats
     assert st["resets"] == 0 and st["tracked_frames"] >= N_FRAMES - 4, st
@@ -97,7 +99,7 @@ def test_threaded_system_tracks_and_shuts_down(scene, paced):
     assert ate < 0.05, ate
     # the schedule ran: overlapped events, deferred BAs, every keyframe in
     # the database after the last BoW landed, nothing left in flight
-    assert "wait" in system.local_mapper.stage_times
+    assert "wait" in rec.stages("map.")
     assert all(b["deferred"] for b in system.local_mapper.ba_log)
     assert system.loop_closer._pending_bow is None and system.local_mapper._pending_fold is None
     assert int(system.database.present.sum()) == len(kfs)
